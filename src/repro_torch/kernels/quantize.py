@@ -1,0 +1,74 @@
+"""Fused gather + blockwise quantize kernels (CUDA, ``csrc/quantize.cu``).
+
+The checkpoint fast path for error-bounded slots: the changed chunk rows of
+a float leaf leave the card already in the q8 (int8 + scales) or q4 (packed
+nibbles + scales) wire format, read in one pass from the leaf's own storage.
+
+Replaces ``gather_quantize_pallas`` / ``gather_quantize4_pallas`` of the
+reference package's ``kernels/quantize.py``. The plain-torch versions are
+``kernels/ref.py::gather_quantize_ref`` / ``gather_quantize4_ref`` over the
+padded float row view (``ops._padded_float_blocks``).
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from repro_torch.kernels import cuda_build
+
+Q8_BLOCK = 256
+Q4_BLOCK = 256
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+launches = {"gather_quantize": 0, "gather_quantize4": 0}
+_count_lock = threading.Lock()
+
+
+def _launch(x: torch.Tensor, idx: torch.Tensor, chunk_words: int,
+            block: int, q4: bool):
+    if not x.is_cuda:
+        raise ValueError("the CUDA gather-quantize kernel takes a CUDA tensor")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"gather-quantize takes f32/bf16/f16, got {x.dtype}")
+    W = chunk_words
+    if W % block or (q4 and W % 2):
+        raise ValueError(f"chunk_words {W} must be a multiple of block "
+                         f"{block}" + (" and even" if q4 else ""))
+    flat = x.contiguous().reshape(-1)
+    n = flat.numel()
+    idx = idx.to(device=x.device, dtype=torch.int32).contiguous()
+    C = idx.numel()
+    n_sub = W // block
+    out = torch.empty((C, W // 2 if q4 else W),
+                      dtype=torch.uint8 if q4 else torch.int8,
+                      device=x.device)
+    scales = torch.empty((C, n_sub), dtype=torch.float32, device=x.device)
+    if C == 0:
+        return out, scales
+    lib = cuda_build.library("quantize")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gq_launch(flat.data_ptr(), n, _DTYPE_CODE[x.dtype], W, block,
+                            idx.data_ptr(), C, out.data_ptr(),
+                            scales.data_ptr(), int(q4), stream)
+    name = "gather_quantize4" if q4 else "gather_quantize"
+    cuda_build.check(err, name)
+    with _count_lock:
+        launches[name] += 1
+    return out, scales
+
+
+def gather_quantize_cuda(x: torch.Tensor, idx: torch.Tensor,
+                         chunk_words: int, block: int = Q8_BLOCK):
+    """Rows ``idx`` of the leaf's [G, chunk_words] float view -> (q int8
+    [C, W], scales f32 [C, W // block])."""
+    return _launch(x, idx, chunk_words, block, q4=False)
+
+
+def gather_quantize4_cuda(x: torch.Tensor, idx: torch.Tensor,
+                          chunk_words: int, block: int = Q4_BLOCK):
+    """Rows ``idx`` -> (packed uint8 [C, W // 2] half-split nibbles, scales
+    f32 [C, W // block])."""
+    return _launch(x, idx, chunk_words, block, q4=True)

@@ -1,0 +1,133 @@
+"""Training launcher with Flor record integrated as a first-class feature.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch florbench-100m \
+        --epochs 4 --steps-per-epoch 8 --run-dir /tmp/run1
+
+Runs on the card (``--device cuda``, the default; it fails when there is no
+card) unless ``--device cpu`` is given. ``--smoke`` picks the reduced
+same-family config.
+
+Fault tolerance IS the paper's substrate: on start, if the run dir already
+holds checkpoints, training resumes from the latest epoch checkpoint. Kill
+the process mid-run and relaunch with the same command to see it.
+
+Cross-run warm start (``--parent-run``) and multi-process record are later
+slices of this package (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def main(argv=None):
+    """Parse ``argv`` (default: the command line), record the run, and
+    return {"state": final TrainState, "run_dir", "store", "ckpt_stats":
+    the pipeline's per-checkpoint stats} for callers that drive the
+    launcher in-process."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="florbench-100m")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--epochs", type=int, default=4)
+    ap.add_argument("--steps-per-epoch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--run-dir", required=True)
+    ap.add_argument("--epsilon", type=float, default=1.0 / 15)
+    ap.add_argument("--no-adaptive", action="store_true")
+    ap.add_argument("--no-flor", action="store_true",
+                    help="vanilla baseline (no record) for overhead benchs")
+    ap.add_argument("--sync-log", action="store_true",
+                    help="synchronous flor.log (serialize + write on the "
+                         "step path) instead of the background log stage")
+    ap.add_argument("--log-spill-bytes", type=int, default=1 << 20,
+                    help="spill logged arrays larger than this many host "
+                         "bytes to the checkpoint store, logging a ref row "
+                         "(0 disables)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--store-root", default=None,
+                    help="SHARED checkpoint store root (multi-run lineage); "
+                         "default: private <run-dir>/store")
+    ap.add_argument("--run-id", default=None,
+                    help="explicit run id in the shared store")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    import repro_torch.configs as C
+    import repro_torch.flor as flor
+    from repro_torch.data import synthetic_batch
+    from repro_torch.train.step import build_train_step
+
+    cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
+    init_state, ts = build_train_step(cfg, device=args.device)
+    state = init_state(args.seed)
+
+    if args.no_flor:
+        t0 = time.time()
+        for epoch in range(args.epochs):
+            for s in range(args.steps_per_epoch):
+                b = synthetic_batch(cfg, args.batch, args.seq,
+                                    epoch * args.steps_per_epoch + s,
+                                    args.seed)
+                state, m = ts(state, b)
+            print(f"epoch {epoch} loss {float(m['loss']):.4f}", flush=True)
+        print(f"vanilla wall {time.time() - t0:.2f}s")
+        return {"state": state, "run_dir": args.run_dir, "store": None,
+                "ckpt_stats": []}
+
+    with flor.Session(
+            args.run_dir, mode="record",
+            record=flor.RecordSpec(epsilon=args.epsilon,
+                                   adaptive=not args.no_adaptive,
+                                   async_log=not args.sync_log,
+                                   log_spill_bytes=args.log_spill_bytes),
+            lineage=flor.LineageSpec(store_root=args.store_root,
+                                     run_id=args.run_id)) as sess:
+        ctx = sess.ctx
+        # crash-restart: resume from the latest epoch checkpoint if any
+        done = set()
+        for k in ctx.store.list_keys():
+            if "_at_" in k:
+                try:
+                    done.add(int(k.split("_at_")[1].split(".")[0]))
+                except ValueError:
+                    pass
+        resume_from = max(done) + 1 if done else 0
+        if resume_from:
+            # physical restore of the latest Loop End Checkpoint, then
+            # skip the completed epochs — restart == weak-init replay
+            print(f"resuming: restoring epoch {max(done)} checkpoint",
+                  flush=True)
+            state = ctx.store.get_tree(f"train@{max(done)}.0", like=state)
+
+        t0 = time.time()
+        steps = sess.arg("steps_per_epoch", args.steps_per_epoch)
+        with sess.checkpointing(state=state) as ckpt:
+            for epoch in sess.loop("epochs",
+                                   range(sess.arg("epochs", args.epochs))):
+                if epoch < resume_from:
+                    continue
+                for s in sess.loop("train", range(steps)):
+                    b = synthetic_batch(cfg, args.batch, args.seq,
+                                        epoch * steps + s, args.seed)
+                    ckpt.state, m = ts(ckpt.state, b)
+                flor.log("loss", m["loss"])
+                print(f"epoch {epoch} done", flush=True)
+        state = ckpt.state
+        store = ctx.store
+        ctx.pipeline.drain()
+        ckpt_stats = ctx.pipeline.stats
+    if state.step.is_cuda:
+        torch.cuda.synchronize(state.step.device)
+    print(f"record wall {time.time() - t0:.2f}s")
+    return {"state": state, "run_dir": args.run_dir, "store": store,
+            "ckpt_stats": ckpt_stats}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,146 @@
+"""Pytree helpers on ``torch.utils._pytree`` with the reference package's
+flatten order and leaf paths.
+
+Checkpoints name leaves by path strings and restore maps stored leaves onto a
+``like`` tree by flatten order, so both must equal the reference package's
+(jax's) exactly: dicts flatten in SORTED key order (torch's own pytree keeps
+insertion order), and paths render as ``.params['embed']['table']`` — the
+``keystr`` of torch's key classes, which matches jax's for dict
+(``['k']``), list/tuple (``[0]``), NamedTuple and dataclass (``.field``)
+nodes. ``None`` is an empty node (no leaves); everything else is a leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+from torch.utils import _pytree as tp
+
+keystr = tp.keystr
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeDef:
+    kind: str                 # leaf | none | dict | list | tuple | namedtuple | dataclass
+    ctx: Any = None           # keys / field names / node type
+    children: tuple = ()
+
+    def __str__(self):
+        if self.kind == "leaf":
+            return "*"
+        if self.kind == "none":
+            return "None"
+        inner = ", ".join(str(c) for c in self.children)
+        return f"{self.kind}({inner})"
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _node(x):
+    """(kind, ctx, [(key object, child)]) for a node, None for a leaf."""
+    if x is None:
+        return "none", None, []
+    if isinstance(x, dict):
+        keys = sorted(x)
+        return "dict", (type(x), tuple(keys)), \
+            [(tp.MappingKey(k), x[k]) for k in keys]
+    if _is_namedtuple(x):
+        return "namedtuple", type(x), \
+            [(tp.GetAttrKey(f), getattr(x, f)) for f in x._fields]
+    if isinstance(x, (list, tuple)):
+        return ("list" if isinstance(x, list) else "tuple"), len(x), \
+            [(tp.SequenceKey(i), c) for i, c in enumerate(x)]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        names = tuple(f.name for f in dataclasses.fields(x))
+        return "dataclass", (type(x), names), \
+            [(tp.GetAttrKey(f), getattr(x, f)) for f in names]
+    return None
+
+
+def tree_flatten_with_path(tree) -> tuple[list, TreeDef]:
+    """([(key path tuple, leaf), ...], treedef) in the reference order."""
+    out: list = []
+
+    def rec(x, path):
+        node = _node(x)
+        if node is None:
+            out.append((path, x))
+            return TreeDef("leaf")
+        kind, ctx, kids = node
+        return TreeDef(kind, ctx, tuple(rec(c, path + (k,)) for k, c in kids))
+
+    treedef = rec(tree, ())
+    return out, treedef
+
+
+def tree_flatten(tree) -> tuple[list, TreeDef]:
+    flat, treedef = tree_flatten_with_path(tree)
+    return [leaf for _, leaf in flat], treedef
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_unflatten(treedef: TreeDef, leaves) -> Any:
+    it = iter(leaves)
+
+    def rec(td: TreeDef):
+        if td.kind == "leaf":
+            return next(it)
+        if td.kind == "none":
+            return None
+        kids = [rec(c) for c in td.children]
+        if td.kind == "dict":
+            typ, keys = td.ctx
+            return typ(zip(keys, kids))
+        if td.kind == "namedtuple":
+            return td.ctx(*kids)
+        if td.kind == "list":
+            return kids
+        if td.kind == "tuple":
+            return tuple(kids)
+        typ, names = td.ctx
+        return typ(**dict(zip(names, kids)))
+
+    out = rec(treedef)
+    if next(it, None) is not None:
+        raise ValueError("too many leaves for the tree structure")
+    return out
+
+
+def tree_map(fn: Callable, tree, *rest):
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_leaves_with_paths(tree):
+    """[(keystr path, leaf), ...] in the reference order."""
+    flat, _ = tree_flatten_with_path(tree)
+    return [(keystr(p), v) for p, v in flat]
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of all tensor / array leaves."""
+    total = 0
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        elif hasattr(leaf, "nbytes"):
+            total += int(leaf.nbytes)
+    return total
+
+
+def block_until_ready(tree):
+    """Wait until the card has finished every kernel producing the tree's
+    CUDA tensors (the counterpart of jax.block_until_ready), so host
+    timing around a block measures the work and not its enqueue."""
+    devices = {leaf.device for leaf in tree_leaves(tree)
+               if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return tree
