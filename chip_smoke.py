@@ -7,31 +7,56 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
-2. kernel phases: each of the four checkpoint kernels against its plain
-   torch version (``kernels/ref.py``) on the card, on seeded inputs —
-   the leaves of the full florbench-100m TrainState (its own ``init_state``,
-   with seeded moment values), odd-length bf16/f16/uint8/int64/bool
-   leaves, a scalar leaf, 0xFFFFFFFF and all-zero rows, exact .5 ties,
-   C=1 and partial last rows. Digests and masks must match bit for bit,
-   q8/q4 payloads and scales byte for byte. Then, at the main path's
-   shapes, each kernel's device time beside its plain version's and its
-   bound, and the host-inclusive time of the pass (``time_calls``);
+2. kernel phases: each of the eight kernels against its plain torch
+   version (``kernels/ref.py``) on the card, on seeded inputs, then timed
+   at its main shape beside the plain version, its bound and, for flash
+   attention, ``scaled_dot_product_attention``:
+   - the four checkpoint kernels (fingerprint, fused fingerprint + changed
+     mask, q8 / q4 gathers) on the leaves of the full florbench-100m
+     TrainState (its own ``init_state``, with seeded moment values),
+     odd-length bf16/f16/uint8/int64/bool leaves, a scalar leaf,
+     0xFFFFFFFF and all-zero rows, exact .5 ties, C=1 and partial last
+     rows: digests and masks bit for bit, q8/q4 payloads and scales byte
+     for byte;
+   - the stand-alone changed mask on the TrainState's digests against a
+     prev that differs in a seeded subset of rows (in one word only for
+     some), bit for bit;
+   - quantize_blocks / dequantize_blocks on the largest TrainState leaf
+     and edge cases (odd lengths in f32/bf16/f16, all-zero rows, exact .5
+     ties, +-absmax rows): q, scales and values bit for bit;
+   - flash attention in f32 and bf16 at florbench-100m's width, a
+     qwen3-14b GQA layer, Sq < Sk and bidirectional, plus rows that see no
+     key, a ragged f16 case and head dim 256: within atol = rtol 2e-6 in
+     f32, and within one output ulp (rtol 1e-2, atol 1e-4) in bf16 / f16,
+     of the plain version (TF32 off); quantize / dequantize beside their
+     library peer where one call computes the function;
 3. a small-input model check: the same weights on the CPU and the card
    give the same loss;
 4. main path A: ``repro_torch.launch.train.main`` at the full
-   florbench-100m width (batch 8, seq 512, 3 epochs x 3 steps, every epoch
+   florbench-100m width (batch 8, seq 512, 2 epochs x 3 steps, every epoch
    checkpointed), then a restore of the last checkpoint that must equal the
    live state bit for bit;
-5. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps)
+5. replay R1: ``flor.Session(mode="replay")`` over path A's run with no
+   probed block: every epoch restored onto the card (seconds and GB/s per
+   restore), an outer probe logging the embedding norm, and the final
+   state equal to the recorded one bit for bit; its kernel launches are
+   counted as a path's (the restore path runs none);
+6. replay R2: ``python -m repro_torch.launch.replay --probe train
+   --nworkers 2 --check`` over path A's run on the card: two worker
+   processes share the card, and the deferred check must pass at its own
+   rtol 1e-4 with one hindsight row per step;
+7. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps)
    with ``RecordSpec(ckpt_error_bounds={"mu": 1e-2, "nu": 1e-3},
    ckpt_overlap=True)``; ``mu``/``nu`` restore within their bounds, every
    other leaf bit for bit. At these bounds the selector stores every
    moment chunk as q4, so the q8 kernel does not run here;
-6. main path C: the same Session with tight bounds
+8. main path C: the same Session with tight bounds
    (``TIGHT_BOUNDS``, 1 epoch x 3 steps), at which the selector splits
    the moment chunks between q4, q8 and raw, checked as in B;
-7. a ``kernels`` JSON line (launches in phases 4-6, times, bounds), the
-   card line, and last the JSON line ``{"ok": true, "device": {...}}``.
+9. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
+   paths A, R1, B and C; for the four ``ops`` kernels, the launches of
+   their own phase), the card line, and last the JSON line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line is printed. The run
 directories live under ``build/chip_smoke`` (git-ignored) and are removed at
@@ -51,8 +76,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM bf16 / f16 tensor cores, dense
 SEED = 0
-BATCH, SEQ, EPOCHS, STEPS = 8, 512, 3, 3
+# path A: 2 epochs (its third went to make room for the replay phases)
+BATCH, SEQ, EPOCHS, STEPS = 8, 512, 2, 3
 # path B takes one full and one delta checkpoint, path C one full; each
 # full-width checkpoint costs about a minute on the writer thread
 B_EPOCHS, C_EPOCHS = 2, 1
@@ -129,6 +156,28 @@ def time_calls(torch, calls, reps: int = 5) -> dict:
         fail("torch.profiler recorded no device time for a timed pass")
     return {"ms": dev_us / reps / 1e3, "pass_ms": statistics.median(whole),
             "dispatch_us": statistics.median(disp)}
+
+
+def bound(hbm_bps, nbytes, ops_n, peak_ops=F32_OPS_PER_S):
+    """(least ms the card could take, "bytes" | "operations"): the larger of
+    the bytes over the memory rate and the operations over their peak."""
+    t_bytes = nbytes / hbm_bps * 1e3
+    t_ops = ops_n / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_pass(torch, hbm_bps, kernel_calls, plain_calls, nbytes, ops_n,
+               err, peak_ops=F32_OPS_PER_S, library_calls=None) -> dict:
+    """Card time of a pass of kernel calls beside its plain version's, its
+    bound and, where one PyTorch call computes the same function, that
+    call's (``library_ms``, else None)."""
+    t = time_calls(torch, kernel_calls)
+    b, by = bound(hbm_bps, nbytes, ops_n, peak_ops)
+    lib = time_calls(torch, library_calls)["ms"] if library_calls else None
+    return dict(max_abs_err=err, ms=t["ms"], pass_ms=t["pass_ms"],
+                dispatch_us=t["dispatch_us"],
+                plain_ms=time_calls(torch, plain_calls, reps=3)["ms"],
+                bound_ms=b, bound_by=by, library_ms=lib)
 
 
 def sync(torch, dev):
@@ -281,25 +330,13 @@ def kernel_phase(torch, dev, hbm_bps, cfg):
     dig_bytes = sum(p.numel() * 4 for p in prevs)
     words = sum(v.numel() * v.element_size() // 4 for v in views)
 
-    def bound(nbytes, ops_n):
-        t_bytes = nbytes / hbm_bps * 1e3
-        t_ops = ops_n / F32_OPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                            "operations")
-
-    def timed(kernel_calls, plain_calls, nbytes, ops_n, err):
-        t = time_calls(torch, kernel_calls)
-        b, by = bound(nbytes, ops_n)
-        return dict(max_abs_err=err, ms=t["ms"], pass_ms=t["pass_ms"],
-                    dispatch_us=t["dispatch_us"],
-                    plain_ms=time_calls(torch, plain_calls, reps=3)["ms"],
-                    bound_ms=b, bound_by=by)
-
-    results["fingerprint"] = timed(
+    results["fingerprint"] = timed_pass(
+        torch, hbm_bps,
         [lambda v=v: ops.fingerprint_leaf(v, CW) for v in views],
         [lambda b=b: ref.fingerprint_ref(b) for b in blocks_all],
         leaf_bytes + dig_bytes, 8 * words, err_fp)
-    results["fingerprint_changed"] = timed(
+    results["fingerprint_changed"] = timed_pass(
+        torch, hbm_bps,
         [lambda v=v, p=p: ops.fingerprint_and_changed(v, p, CW)
          for v, p in zip(views, prevs)],
         [lambda b=b, p=p: ref.fingerprint_changed_ref(b, p)
@@ -342,7 +379,8 @@ def kernel_phase(torch, dev, hbm_bps, cfg):
         elems = sum(x.numel() for x in slot)
         rows = sum(i.numel() for i in idxs)
         out_bytes = rows * CW // (2 if q4 else 1) + rows * (CW // 256) * 4
-        results[kname] = timed(
+        results[kname] = timed_pass(
+            torch, hbm_bps,
             [lambda x=x, i=i: kern(x, i, CW) for x, i in zip(slot, idxs)],
             [lambda p=p, i=i: plain_fn(p, i, 256)
              for p, i in zip(padded, idxs)],
@@ -354,7 +392,263 @@ def kernel_phase(torch, dev, hbm_bps, cfg):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}); the pass as the "
             f"host issues it {r['pass_ms']:.4f} ms, "
             f"{r['dispatch_us']:.1f} us of host dispatch per launch")
+    results["changed_mask"] = changed_mask_phase(torch, dev, gen, hbm_bps,
+                                                 prevs)
+    results.update(quantize_phase(torch, dev, gen, hbm_bps, state))
+    results["flash_attention"] = flash_phase(torch, dev, gen, hbm_bps)
     return results
+
+
+# ------------------------------------------------------ ops kernel phases --
+# Kernels #5-#8 have no caller on the record path (none in the reference
+# package either): ``kernels/ops.py`` is their entry point. Each phase resets
+# the launch counts, drives the ops entry point on its inputs, reads the
+# counts (its "launches"), then holds every output against the plain
+# version on the same inputs and times the kernel at the phase's main shape.
+
+def changed_mask_phase(torch, dev, gen, hbm_bps, digests) -> dict:
+    """#8 on the [G, 2] digests of the whole florbench-100m TrainState (one
+    call per leaf, as a checkpoint pass would make them) against a prev
+    that differs in a seeded subset of rows: in word 0 only, in word 1 only,
+    or in both."""
+    from repro_torch.kernels import ops, ref
+
+    d = torch.cat(digests)
+    u = torch.rand(d.shape[0], generator=gen, device=dev)
+    prev = d.clone()
+    prev[u < 0.2, 0] ^= 1 << 7
+    prev[(u >= 0.2) & (u < 0.3), 1] ^= -1
+    prev[(u >= 0.3) & (u < 0.4)] ^= 0x5A5A
+    prevs = list(torch.split(prev, [x.shape[0] for x in digests]))
+    ops.reset_launch_counts()
+    masks = [ops.changed_chunks(a, p) for a, p in zip(digests, prevs)]
+    launches = ops.launch_counts()["changed_mask"]
+    mask = torch.cat(masks)
+    want = ref.changed_mask_ref(d, prev).to(torch.int32)
+    if not bits_equal(torch, mask, want):
+        fail(f"changed_mask differs from the plain version on "
+             f"{int((mask != want).sum())} of {mask.numel()} rows")
+    if int(mask.sum()) != int((u < 0.4).sum()):
+        fail(f"changed_mask flags {int(mask.sum())} rows, "
+             f"{int((u < 0.4).sum())} were changed")
+    say(f"kernel changed_mask: {mask.numel()} TrainState digest rows over "
+        f"{len(digests)} leaves ({int(mask.sum())} changed, some in one "
+        f"word only) bit-exact vs plain")
+    G = d.shape[0]
+    r = timed_pass(torch, hbm_bps,
+                   [lambda a=a, p=p: ops.changed_chunks(a, p)
+                    for a, p in zip(digests, prevs)],
+                   [lambda a=a, p=p: ref.changed_mask_ref(a, p)
+                    .to(torch.int32) for a, p in zip(digests, prevs)],
+                   2 * G * 8 + G * 4, 2 * G, 0.0)
+    return dict(r, launches=launches)
+
+
+def quantize_cases(torch, gen, dev, state):
+    """[(name, leaf)] for quantize_blocks / dequantize_blocks: the largest
+    TrainState leaf (the main shape), then odd lengths in each float dtype,
+    all-zero rows, exact .5 ties and rows whose absmax is hit with both
+    signs."""
+    path, big = max(state, key=lambda px: px[1].numel())
+    pm = 2.0 * torch.rand(64 * 256, generator=gen, device=dev) - 1.0
+    pm[0::256] = 3.0
+    pm[1::256] = -3.0
+    pm[512:768] *= 0.5
+    pm[600] = -5.0                          # a row whose absmax is negative
+    return [
+        (f"{path} {list(big.shape)}", big),
+        ("f32 odd 50001", 1e-3 * torch.randn(50001, generator=gen,
+                                             device=dev)),
+        ("bf16 odd 40001", torch.randn(40001, generator=gen, device=dev)
+         .bfloat16()),
+        ("f16 odd 33333", torch.randn(33333, generator=gen, device=dev)
+         .half()),
+        ("all-zero rows", torch.zeros(3 * 8 * 256 + 100, device=dev)),
+        ("exact .5 ties", tie_rows(torch, dev, False)),
+        ("+-absmax rows", pm),
+    ]
+
+
+def quantize_phase(torch, dev, gen, hbm_bps, state) -> dict:
+    """#6 and #7: q, scales and dequantized values bit for bit against the
+    plain versions; every value back within half a scale step."""
+    from repro_torch.kernels import ops, ref
+
+    cases = quantize_cases(torch, gen, dev, state)
+    ops.reset_launch_counts()
+    outs = []
+    for name, x in cases:
+        q, s = ops.quantize_blocks(x)
+        outs.append((name, x, q, s, ops.dequantize_blocks(q, s, x.shape,
+                                                          x.dtype)))
+    counts = ops.launch_counts()
+    for name, x, q, s, back in outs:
+        n = x.numel()
+        g = q.shape[0]
+        flat = torch.nn.functional.pad(x.reshape(-1).float(),
+                                       (0, g * 256 - n))
+        q_ref, s_ref = ref.quantize_ref(flat.reshape(g, 256))
+        if not (bits_equal(torch, q, q_ref) and bits_equal(torch, s, s_ref)):
+            fail(f"quantize_blocks differs from the plain version on {name}: "
+                 f"{int((q != q_ref).sum())} bytes, "
+                 f"{int((s != s_ref).sum())} scales")
+        back_ref = ref.dequantize_ref(q, s).reshape(-1)[:n] \
+            .reshape(x.shape).to(x.dtype)
+        if not bits_equal(torch, back, back_ref):
+            fail(f"dequantize_blocks differs from the plain version on "
+                 f"{name}")
+        step = s.repeat_interleave(256)[:n].reshape(x.shape)
+        err = (back.float() - x.float()).abs()
+        slack = 0.0 if x.dtype == torch.float32 else 1e-2 * x.float().abs()
+        # half a step, plus the f32 product's rounding (below 1e-5 of a
+        # step at |q| <= 127) and, for bf16/f16 leaves, their own rounding
+        if bool((err > 0.5 * step + 1e-5 * step + slack).any()):
+            fail(f"dequantize_blocks(quantize_blocks(x)) off by more than "
+                 f"half a scale step on {name}")
+    say(f"kernel quantize_rows / dequantize_rows: {len(cases)} cases "
+        f"(largest leaf {cases[0][0]}) bit-exact vs plain: q, scales and "
+        f"dequantized values; every value within half a scale step")
+    _, big = cases[0]
+    n = big.numel()
+    q, s = outs[0][2], outs[0][3]
+    g = q.shape[0]
+    res = {"quantize_rows": timed_pass(
+        torch, hbm_bps, [lambda: ops.quantize_blocks(big)],
+        [lambda: ref.quantize_ref(torch.nn.functional.pad(
+            big.reshape(-1), (0, g * 256 - n)).reshape(g, 256))],
+        n * 4 + g * 256 + g * 4, 4 * n, 0.0)}
+    # the library peer: one int8 x f32 product (promotes to f32), the same
+    # function at this shape (n = g * 256, nothing to trim)
+    res["dequantize_rows"] = timed_pass(
+        torch, hbm_bps,
+        [lambda: ops.dequantize_blocks(q, s, big.shape, big.dtype)],
+        [lambda: ref.dequantize_ref(q, s).reshape(-1)[:n]
+         .reshape(big.shape)],
+        g * 256 + g * 4 + n * 4, n, 0.0,
+        library_calls=[lambda: torch.mul(q, s[:, None])])
+    lib_same = bits_equal(torch, torch.mul(q, s[:, None]).reshape(big.shape),
+                          ops.dequantize_blocks(q, s, big.shape, big.dtype))
+    say(f"kernel dequantize_rows library peer torch.mul(q, scale[:, None]): "
+        f"{res['dequantize_rows']['library_ms']:.4f} ms, same bits as the "
+        f"kernel: {lib_same}")
+    res["quantize_rows"]["launches"] = counts["quantize_rows"]
+    res["dequantize_rows"]["launches"] = counts["dequantize_rows"]
+    return res
+
+
+# name, B, H, KV, Sq, Sk, d, causal
+FLASH_CASES = [
+    ("florbench-100m attention", 8, 12, 12, 512, 512, 64, True),
+    ("qwen3-14b GQA layer", 1, 40, 8, 2048, 2048, 128, True),
+    ("Sq 128 < Sk 2048", 1, 40, 8, 128, 2048, 128, True),
+    ("bidirectional", 8, 12, 12, 512, 512, 64, False),
+]
+# checked, not timed: (case, dtype); a causal case with Sq > Sk also checks
+# that the rows which see no key give the mean of v
+FLASH_EDGE = [
+    (("fully masked rows, Sq 192 > Sk 64", 1, 4, 2, 192, 64, 64, True),
+     "float32"),
+    (("ragged S 200, d 24", 2, 4, 2, 200, 200, 24, True), "float16"),
+    (("head dim 256", 1, 2, 1, 128, 128, 256, True), "float32"),
+]
+# (atol, rtol). Kernel and plain version both compute in f32 from the same
+# inputs: in f32 they differ by summation order (the reference package's
+# own 2e-6); in bf16 / f16 by at most the final rounding, one output ulp
+# (2**-7 relative in bf16 at most, below rtol 1e-2)
+FLASH_TOL = {"float32": (2e-6, 2e-6), "bfloat16": (1e-4, 1e-2),
+             "float16": (1e-4, 1e-2)}
+MAIN_FLASH = ("qwen3-14b GQA layer", "bfloat16")   # the kernels line's row
+
+
+def flash_phase(torch, dev, gen, hbm_bps) -> dict:
+    """#5 against its plain version (einsum, f32 softmax; TF32 off) within
+    ``FLASH_TOL``: the reference package's own 2e-6 in f32, one output ulp
+    in bf16 and f16."""
+    from repro_torch.kernels import ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"flash attention plain version: TF32 off (matmul allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32})")
+    cases = []
+    for c in FLASH_CASES:
+        for dt in ("float32", "bfloat16"):
+            cases.append((c, dt, True))
+    for c, dt in FLASH_EDGE:
+        cases.append((c, dt, False))
+    inputs = []
+    for (name, B, H, KV, Sq, Sk, d, causal), dt, timed in cases:
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, H, Sq, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, KV, Sk, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, KV, Sk, d, generator=gen, device=dev).to(dtype)
+        inputs.append((q, k, v))
+    ops.reset_launch_counts()
+    outs = [ops.flash_attention(q, k, v, causal=c[7])
+            for (c, _, _), (q, k, v) in zip(cases, inputs)]
+    launches = ops.launch_counts()["flash_attention"]
+    main = None
+    rows = []
+    for ((name, B, H, KV, Sq, Sk, d, causal), dt, timed), (q, k, v), o in \
+            zip(cases, inputs, outs):
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        atol, rtol = FLASH_TOL[dt]
+        g, w = o.float(), want.float()
+        if o.shape != want.shape or o.dtype != want.dtype \
+                or not bool(torch.isfinite(g).all()):
+            fail(f"flash_attention on {name} {dt}: {o.dtype} "
+                 f"{list(o.shape)}, finite={bool(torch.isfinite(g).all())}")
+        excess = float(((g - w).abs() - rtol * w.abs()).max())
+        err = max_abs_diff(torch, g, w)
+        if excess > atol:
+            fail(f"flash_attention on {name} {dt} off the plain version by "
+                 f"{err} (atol {atol}, rtol {rtol})")
+        blind = Sq - Sk if causal else 0
+        if blind > 0:
+            mean_v = v.float().mean(dim=2).repeat_interleave(H // KV, dim=1)
+            if (g[:, :, :blind] - mean_v[:, :, None]).abs().max() > 1e-5:
+                fail(f"flash_attention on {name}: a row that sees no key is "
+                     f"not the mean of v")
+        line = f"{name} {dt} [B {B}, H {H}, KV {KV}, Sq {Sq}, Sk {Sk}, " \
+               f"d {d}, causal {causal}]: max_abs_err {err:.3e} (atol " \
+               f"{atol}, rtol {rtol})"
+        if not timed:
+            say(f"kernel flash_attention {line}")
+            continue
+        off = Sk - Sq
+        r_idx = torch.arange(Sq, dtype=torch.float64)
+        visible = float((r_idx + off + 1).clamp(0, Sk).sum()) if causal \
+            else float(Sq * Sk)
+        flops = 4.0 * B * H * d * visible
+        nbytes = (2 * B * H * Sq * d + 2 * B * KV * Sk * d) * q.element_size()
+        peak = F32_OPS_PER_S if dt == "float32" else BF16_OPS_PER_S
+        sdpa = None
+        if Sq == Sk:
+            sdpa = [lambda q=q, k=k, v=v, c=causal:
+                    torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, is_causal=c, enable_gqa=True)]
+        r = timed_pass(torch, hbm_bps,
+                       [lambda q=q, k=k, v=v, c=causal:
+                        ops.flash_attention(q, k, v, causal=c)],
+                       [lambda q=q, k=k, v=v, c=causal:
+                        ref.flash_attention_ref(q, k, v, causal=c)],
+                       nbytes, flops, err, peak_ops=peak, library_calls=sdpa)
+        lib = "n/a (Sk - Sq offset)" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        say(f"kernel flash_attention {line}; {r['ms']:.4f} ms on the card, "
+            f"{flops / r['ms'] / 1e9:.2f} TFLOP/s, plain {r['plain_ms']:.4f}"
+            f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA "
+            f"{lib}")
+        rows.append(dict(case=name, dtype=dt, ms=r["ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"], library_ms=r["library_ms"],
+                         max_abs_err=err))
+        if (name, dt) == MAIN_FLASH:
+            main = r
+    say(f"kernel flash_attention: {len(cases)} cases within tolerance of "
+        f"the plain version ({launches} launches)")
+    return dict(main, launches=launches, cases=rows)
 
 
 # ---------------------------------------------------------- model check --
@@ -450,7 +744,90 @@ def main_path_a(torch, ops, dev, smoke=False):
         f"{STEPS} steps in {wall:.2f} s; {len(keys)} checkpoints; restore "
         f"of train@{EPOCHS - 1}.0 bit-identical on all 32 leaves")
     host_line("path A", out["ckpt_stats"])
+    return counts, state
+
+
+# --------------------------------------------------------------- replay --
+def replay_r1(torch, dev, cfg, recorded) -> dict:
+    """Hindsight replay of path A's run through ``flor.Session(mode=
+    "replay")`` with no probed block: every epoch restores its Loop End
+    Checkpoint onto the card; an outer probe logs the embedding norm per
+    epoch. The final state must equal the recorded final state bit for
+    bit. Returns the kernel launches of the replay (the restore path runs
+    no kernel)."""
+    import repro_torch.flor as flor
+    from repro_torch.kernels import ops
+    from repro_torch.logging import read_stream
+    from repro_torch.train.step import build_train_step
+
+    run = os.path.join(WORK, "path_a")
+    init_state, _ = build_train_step(cfg, device=dev)
+    state = init_state(SEED)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with flor.Session(run, mode="replay",
+                      replay=flor.ReplaySpec(probed=set())) as sess:
+        steps = sess.arg("steps_per_epoch", STEPS)
+        with sess.checkpointing(state=state) as ckpt:
+            for epoch in sess.loop("epochs",
+                                   range(sess.arg("epochs", EPOCHS))):
+                for _ in sess.loop("train", range(steps)):
+                    fail("R1 re-executed a training step: with no probed "
+                         "block every epoch should restore")
+                flor.log("embed_norm",
+                         ckpt.state.params["embed"]["table"].float().norm())
+        samples = list(sess.ctx.restore_stats)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if len(samples) != EPOCHS:
+        fail(f"R1 restored {len(samples)} checkpoints, expected {EPOCHS}")
+    check_restore(torch, {"state": ckpt.state}, {"state": recorded}, {})
+    rows = [r for r in read_stream(os.path.join(run, "logs",
+                                                "replay_p0.jsonl"))
+            if r["key"] == "embed_norm"]
+    norms = [r["value"] for r in rows]
+    if len(norms) != EPOCHS or not all(v == v and v > 0 for v in norms):
+        fail(f"R1 outer probe logged {norms}")
+    per = [f"{x['key']} {x['restore_s']:.2f} s "
+           f"({x['bytes'] / x['restore_s'] / 1e9:.3f} GB/s, "
+           f"{x['hops']} hops)" for x in samples]
+    say(f"replay R1: flor.Session(mode='replay') over path A, {EPOCHS} "
+        f"epochs restored on the card in {wall:.2f} s; per restore: "
+        f"{'; '.join(per)}; embed_norm per epoch {norms}; final state "
+        f"bit-identical to the recorded one on all 32 leaves")
     return counts
+
+
+def replay_r2(torch, dev, smoke=False):
+    """The planned replay launcher over path A's run on the card: probe
+    ``train``, two worker processes sharing the card (one restores its init
+    checkpoint), merge, and the deferred check at its own rtol 1e-4."""
+    run = os.path.join(WORK, "path_a")
+    cmd = [sys.executable, "-m", "repro_torch.launch.replay",
+           "--run-dir", run, "--probe", "train", "--nworkers", "2",
+           "--check", "--batch", str(BATCH), "--seq", str(SEQ),
+           "--seed", str(SEED), "--device", torch.device(dev).type,
+           *(["--smoke"] if smoke else [])]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in r.stdout.strip().splitlines():
+        say(f"  R2| {line}")
+    if r.returncode != 0:
+        fail(f"R2 replay launcher exited {r.returncode}:\n"
+             f"{r.stderr[-4000:]}")
+    m = re.search(r"deferred check: ok=(\w+) compared=(\d+) "
+                  r"hindsight=(\d+)", r.stdout)
+    if not m or m[1] != "True":
+        fail("R2 printed no passing deferred check")
+    if int(m[3]) != EPOCHS * STEPS:
+        fail(f"R2 hindsight rows {m[3]} != {EPOCHS * STEPS}")
+    say(f"replay R2: python -m repro_torch.launch.replay --probe train "
+        f"--nworkers 2 --check on the card: wall {wall:.2f} s; deferred "
+        f"check: ok=True, compared {m[2]}, hindsight {m[3]}")
 
 
 def amplitudes(torch, ops, state, slot: str, cw: int) -> str:
@@ -526,6 +903,43 @@ def session_path(torch, ops, dev, cfg, tag: str, bounds: dict, epochs: int):
 
 
 # ------------------------------------------------------------------ main --
+# kernel -> (CUDA source, the TPU kernel it replaces, its path); "record"
+# kernels must have launched on paths A-C, "ops" kernels report the
+# launches of their own phase (kernels/ops.py is their only entry point)
+KERNELS = {
+    "fingerprint": ("chunk_delta.cu", "chunk_delta.py:37", "record"),
+    "fingerprint_changed": ("chunk_delta.cu", "chunk_delta.py:64", "record"),
+    "gather_quantize": ("quantize.cu", "quantize.py:59", "record"),
+    "gather_quantize4": ("quantize.cu", "quantize.py:107", "record"),
+    "flash_attention": ("flash_attention.cu", "flash_attention.py:68", "ops"),
+    "quantize_rows": ("quantize.cu", "quantize.py:31", "ops"),
+    "dequantize_rows": ("quantize.cu", "quantize.py:140", "ops"),
+    "changed_mask": ("chunk_delta.cu", "chunk_delta.py:95", "ops"),
+}
+
+
+def kernels_line(results: dict, paths: dict) -> list:
+    line = []
+    for k, (src, tpu, path) in KERNELS.items():
+        r = results[k]
+        n = sum(c.get(k, 0) for c in paths.values()) if path == "record" \
+            else r["launches"]
+        if n <= 0:
+            fail(f"kernel {k} was never launched on its path ({path})")
+        entry = {"name": k, "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/" + src,
+                 "replaces": "src/repro/kernels/" + tpu, "launches": n,
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                 "pass_ms": r["pass_ms"], "dispatch_us": r["dispatch_us"],
+                 "path": path}
+        if "cases" in r:
+            entry["cases"] = r["cases"]
+        line.append(entry)
+    return line
+
+
 def main():
     import torch
 
@@ -541,7 +955,8 @@ def main():
     name = torch.cuda.get_device_name(0)
     card = smi_line()
     hbm_bps, hbm_note = peak_hbm(name)
-    say(f"card: {card}")
+    say(f"card: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
     say(f"peak memory rate used for bounds: {hbm_note}")
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -562,41 +977,25 @@ def main():
     cfg = C.get("florbench-100m")
     results = kernel_phase(torch, dev, hbm_bps, cfg)
     if "--kernels-only" in sys.argv[1:]:
+        say(json.dumps({k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms", "max_abs_err")}
+                        for k, r in results.items()}))
         say("--kernels-only: stopping after the kernel phases")
         return
     model_check(torch, dev)
-    counts_a = main_path_a(torch, ops, dev)
+    counts_a, state_a = main_path_a(torch, ops, dev)
+    counts_r1 = replay_r1(torch, dev, cfg, state_a)
+    del state_a
+    replay_r2(torch, dev)
     counts_b = session_path(torch, ops, dev, cfg, "b", B_BOUNDS, B_EPOCHS)
     counts_c = session_path(torch, ops, dev, cfg, "c", TIGHT_BOUNDS,
                             C_EPOCHS)
-    paths = {"A": counts_a, "B": counts_b, "C": counts_c}
+    paths = {"A": counts_a, "R1": counts_r1, "B": counts_b, "C": counts_c}
     for tag, counts in paths.items():
         say(f"launches path {tag}: {json.dumps(counts)}")
-
-    sources = {"fingerprint": "chunk_delta.cu",
-               "fingerprint_changed": "chunk_delta.cu",
-               "gather_quantize": "quantize.cu",
-               "gather_quantize4": "quantize.cu"}
-    replaces = {"fingerprint": "src/repro/kernels/chunk_delta.py:37",
-                "fingerprint_changed": "src/repro/kernels/chunk_delta.py:64",
-                "gather_quantize": "src/repro/kernels/quantize.py:59",
-                "gather_quantize4": "src/repro/kernels/quantize.py:107"}
-    line = []
-    for k, r in results.items():
-        n = sum(c.get(k, 0) for c in paths.values())
-        if n <= 0:
-            fail(f"kernel {k} was never launched on the main path")
-        line.append({"name": k, "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/" + sources[k],
-                     "replaces": replaces[k], "launches": n,
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None,
-                     "pass_ms": r["pass_ms"],
-                     "dispatch_us": r["dispatch_us"]})
+    say(json.dumps({"kernels": kernels_line(results, paths)}))
     shutil.rmtree(WORK, ignore_errors=True)
     say(f"total wall {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps({"kernels": line}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -12,9 +12,10 @@ Run lineage: `store_root=` shares one content-addressed store across runs
 the lineage edge. The binding persists in `<run_dir>/flor.run.json`; run
 records live in the `RunRegistry` beside the store.
 
-This package records; replay mode, warm start, the query index and
-mesh-sharded / multi-process record are later slices (ROADMAP queue 1) and
-raise NotImplementedError here.
+Record and hindsight replay (init/exec phases, planned visit lists, physical
+restore onto the live state's device) are ported; warm start, the query
+index and mesh-sharded / multi-process record or replay are later slices
+(ROADMAP queue 1) and raise NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -65,14 +66,12 @@ class FlorContext:
                  ckpt_overlap: bool = False,
                  mesh=None, ckpt_shard_axes=(),
                  distributed=False, stitch_timeout_s: float = 30.0):
-        if mode != "record":
-            raise NotImplementedError(
-                "replay is not ported yet: hindsight replay is the next "
-                "slice of this package (ROADMAP queue 1)")
+        if mode not in ("record", "replay"):
+            raise ValueError(f"mode must be 'record' or 'replay', got {mode!r}")
         if mesh is not None or distributed:
             raise NotImplementedError(
-                "mesh-sharded / multi-process record is not ported yet "
-                "(ROADMAP queue 1, items 12-13)")
+                "mesh-sharded / multi-process record and replay are not "
+                "ported yet (ROADMAP queue 1, items 12-13)")
         if ckpt_quantize_slots:
             _deprecated(
                 "ckpt_quantize_slots is deprecated: declare WHAT error each "
@@ -103,63 +102,79 @@ class FlorContext:
         # derived run's hindsight replay reconnects to the shared store (and
         # resolves through ancestor-run chunks) with zero extra arguments.
         os.makedirs(run_dir, exist_ok=True)
-        shared = store_root is not None
-        self.store_root = os.path.abspath(store_root) if shared \
-            else os.path.join(run_dir, "store")
-        saved = read_run_meta(run_dir)
-        generated = False
-        if run_id:
-            self.run_id = run_id
-        elif shared and saved.get("run_id") \
-                and saved.get("store_root") == self.store_root:
-            # re-init of the same run dir against the same shared store
-            # is a crash-restart/resume, not a new run: forking a fresh
-            # namespace would orphan the run's own checkpoints
-            self.run_id = saved["run_id"]
-        else:
-            self.run_id = generate_run_id()
-            generated = True
-        if parent_run is None and self.run_id == saved.get("run_id"):
-            # resuming the same run (however identified) keeps its
-            # lineage edge
-            parent_run = saved.get("parent_run")
-        self.namespace = self.run_id if shared else None
-        self.parent_run = parent_run
-        self._run_meta = {
-            "run_id": self.run_id, "namespace": self.namespace,
-            "store_root": self.store_root if shared else None,
-            "parent_run": self.parent_run}
-        if self.run_id == saved.get("run_id"):   # resume: keep bindings
-            self._run_meta["warm_start_keys"] = \
-                saved.get("warm_start_keys") or {}
-        # register BEFORE binding the store handle: simultaneous
-        # recorders race the registry on a shared filesystem. The
-        # atomic create-or-retry applies to every NEW registration —
-        # a generated id retries with a fresh one, an explicit id
-        # surfaces the conflict (two recorders given the same
-        # --run-id must not silently clobber each other); a resume of
-        # this run's own (run_dir, namespace) is never a collision.
-        self.registry = RunRegistry(self.store_root)
-        for attempt in range(8):
-            try:
-                self.registry.register(self.run_id,
-                                       parent=self.parent_run,
-                                       run_dir=os.path.abspath(run_dir),
-                                       namespace=self.namespace,
-                                       exclusive=True)
-                break
-            except RunIdCollision:
-                if not generated or attempt == 7:
-                    raise
+        if mode == "record":
+            shared = store_root is not None
+            self.store_root = os.path.abspath(store_root) if shared \
+                else os.path.join(run_dir, "store")
+            saved = read_run_meta(run_dir)
+            generated = False
+            if run_id:
+                self.run_id = run_id
+            elif shared and saved.get("run_id") \
+                    and saved.get("store_root") == self.store_root:
+                # re-init of the same run dir against the same shared store
+                # is a crash-restart/resume, not a new run: forking a fresh
+                # namespace would orphan the run's own checkpoints
+                self.run_id = saved["run_id"]
+            else:
                 self.run_id = generate_run_id()
-                self.namespace = self.run_id if shared else None
-                self._run_meta["run_id"] = self.run_id
-                self._run_meta["namespace"] = self.namespace
-        self._registered = True
-        write_run_meta(run_dir, self._run_meta)
+                generated = True
+            if parent_run is None and self.run_id == saved.get("run_id"):
+                # resuming the same run (however identified) keeps its
+                # lineage edge
+                parent_run = saved.get("parent_run")
+            self.namespace = self.run_id if shared else None
+            self.parent_run = parent_run
+            self._run_meta = {
+                "run_id": self.run_id, "namespace": self.namespace,
+                "store_root": self.store_root if shared else None,
+                "parent_run": self.parent_run}
+            if self.run_id == saved.get("run_id"):   # resume: keep bindings
+                self._run_meta["warm_start_keys"] = \
+                    saved.get("warm_start_keys") or {}
+            # register BEFORE binding the store handle: simultaneous
+            # recorders race the registry on a shared filesystem. The
+            # atomic create-or-retry applies to every NEW registration —
+            # a generated id retries with a fresh one, an explicit id
+            # surfaces the conflict (two recorders given the same
+            # --run-id must not silently clobber each other); a resume of
+            # this run's own (run_dir, namespace) is never a collision.
+            self.registry = RunRegistry(self.store_root)
+            for attempt in range(8):
+                try:
+                    self.registry.register(self.run_id,
+                                           parent=self.parent_run,
+                                           run_dir=os.path.abspath(run_dir),
+                                           namespace=self.namespace,
+                                           exclusive=True)
+                    break
+                except RunIdCollision:
+                    if not generated or attempt == 7:
+                        raise
+                    self.run_id = generate_run_id()
+                    self.namespace = self.run_id if shared else None
+                    self._run_meta["run_id"] = self.run_id
+                    self._run_meta["namespace"] = self.namespace
+            self._registered = True
+            write_run_meta(run_dir, self._run_meta)
+        else:
+            # replay reconnects through the binding record persisted: the
+            # store (private or shared), the namespace and the lineage edge
+            saved = read_run_meta(run_dir)
+            self._run_meta = saved
+            self.run_id = run_id or saved.get("run_id")
+            self.store_root = os.path.abspath(store_root) if store_root \
+                else (saved.get("store_root")
+                      or os.path.join(run_dir, "store"))
+            self.namespace = saved.get("namespace") if saved \
+                else (self.run_id if store_root else None)
+            self.parent_run = parent_run or saved.get("parent_run")
+            self.registry = RunRegistry(self.store_root)
+            self._registered = False
         self.store = CheckpointStore(self.store_root, run_id=self.namespace)
-        self._snapshot_source()
-        if adaptive:
+        if mode == "record":
+            self._snapshot_source()
+        if adaptive and mode == "record":
             # a resumed run (or any run sharing this store namespace) already
             # measured the store's throughput: reuse the persisted figure and
             # skip the ~8MB probe write; fresh stores still calibrate once
@@ -172,16 +187,18 @@ class FlorContext:
                 self.store.put_meta("store_calib", calib)
                 self.controller.write_bps = calib["write_bps"]
         self.async_materialize = async_materialize
-        # the delta-aware record flow
+        # the delta-aware record flow; replay never submits checkpoints, so
+        # it gets no pipeline (and no idle writer thread)
         self.pipeline = CheckpointPipeline(
             self.store, async_stage=async_materialize,
             full_every=full_manifest_every,
             quantize_slots=ckpt_quantize_slots,
             error_bounds=dict(ckpt_error_bounds or {}),
             overlap=ckpt_overlap,
-            on_materialized=self._on_materialized)
+            on_materialized=self._on_materialized) \
+            if mode == "record" else None
         # backward-compat handle (benchmarks call ctx.writer.drain())
-        self.writer = self.pipeline.writer
+        self.writer = self.pipeline.writer if self.pipeline else None
         # ``log_index`` (the incremental sqlite query index) is accepted for
         # spec compatibility; the index arrives with the query slice, so
         # this run's logs are file-scan-served.
@@ -190,11 +207,12 @@ class FlorContext:
         # async_log (default) puts serialization + I/O on a background stage
         # writing crash-safe segments; the observed logging overhead feeds
         # the controller so it shares the epsilon budget with checkpoints.
+        stream = "record" if mode == "record" else f"replay_p{pid}"
         self.log = FingerprintLog(
-            os.path.join(run_dir, "logs", "record.jsonl"),
-            async_log=async_log,
+            os.path.join(run_dir, "logs", f"{stream}.jsonl"),
+            fresh=(mode == "replay"), async_log=async_log,
             queue_depth=log_queue_depth, spill_bytes=log_spill_bytes,
-            store=self.store, stream="record",
+            store=self.store, stream=stream,
             on_overhead=self.controller.observe_logging)
         self._block_keys_meta: dict[str, dict] = {}
         # ---- session-surface state (flor.loop / flor.checkpointing /

@@ -1,4 +1,4 @@
-"""Chunk fingerprint + changed-mask kernels (CUDA, ``csrc/chunk_delta.cu``).
+"""Chunk fingerprint and changed-mask kernels (CUDA, ``csrc/chunk_delta.cu``).
 
 The async writer wants to know WHICH chunks of a leaf changed since the last
 materialized checkpoint without copying the whole leaf to the host. These
@@ -6,27 +6,20 @@ kernels compute a position-mixed 64-bit digest per chunk on the card, in one
 read of the leaf, straight from its own storage (no padded word copy); only
 chunks whose digest changed are transferred.
 
-Replaces ``fingerprint_pallas`` / ``fingerprint_changed_pallas`` of the
-reference package's ``kernels/chunk_delta.py``. The plain-torch versions are
-``kernels/ref.py::fingerprint_ref`` / ``fingerprint_changed_ref``; the CPU
-path of ``kernels/ops.py`` uses them and ``chip_smoke.py`` holds these
-kernels against them.
-
-``launches`` counts kernel launches (one per call), so a run can show that
-its checkpoints went through the kernels.
+Replaces ``fingerprint_pallas`` / ``fingerprint_changed_pallas`` /
+``changed_mask_pallas`` of the reference package's ``kernels/chunk_delta.py``.
+The plain-torch versions are ``kernels/ref.py::fingerprint_ref`` /
+``fingerprint_changed_ref`` / ``changed_mask_ref``; the CPU path of
+``kernels/ops.py`` uses them and ``chip_smoke.py`` holds these kernels
+against them.
 """
 from __future__ import annotations
-
-import threading
 
 import torch
 
 from repro_torch.kernels import cuda_build
 
 TILE_G = 8                     # digest rows are padded to a multiple of this
-
-launches = {"fingerprint": 0, "fingerprint_changed": 0}
-_count_lock = threading.Lock()      # the writer thread launches too
 
 
 def word_view(x: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -75,9 +68,7 @@ def _launch(x: torch.Tensor, chunk_words: int, prev):
                             mask.data_ptr() if mask is not None else None,
                             stream)
     name = "fingerprint" if prev is None else "fingerprint_changed"
-    cuda_build.check(err, name)
-    with _count_lock:
-        launches[name] += 1
+    cuda_build.launched(err, name)
     return digest, mask
 
 
@@ -91,3 +82,28 @@ def fingerprint_changed_cuda(x: torch.Tensor, prev: torch.Tensor,
     """Fused digest + compare in ONE pass over the leaf: (int32 [G, 2]
     digests, int32 [G] changed mask against ``prev``)."""
     return _launch(x, chunk_words, prev)
+
+
+def changed_mask_cuda(digest: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """int32 [G] mask of the rows where two int32 [G, 2] digest arrays on
+    the card differ (1 = changed)."""
+    if not digest.is_cuda:
+        raise ValueError("the CUDA changed-mask kernel takes a CUDA tensor")
+    G = digest.shape[0]
+    for name, t in (("digest", digest), ("prev", prev)):
+        if t.shape != (G, 2) or t.dtype != torch.int32 \
+                or t.device != digest.device:
+            raise ValueError(f"{name} must be int32 [{G}, 2] on "
+                             f"{digest.device}, got {t.dtype} "
+                             f"{list(t.shape)} on {t.device}")
+    digest, prev = digest.contiguous(), prev.contiguous()
+    mask = torch.empty((G,), dtype=torch.int32, device=digest.device)
+    if G == 0:
+        return mask
+    lib = cuda_build.library("chunk_delta")
+    with torch.cuda.device(digest.device):
+        stream = torch.cuda.current_stream(digest.device).cuda_stream
+        err = lib.cm_launch(digest.data_ptr(), prev.data_ptr(), G,
+                            mask.data_ptr(), stream)
+    cuda_build.launched(err, "changed_mask")
+    return mask

@@ -1,7 +1,9 @@
-// Chunk fingerprint (+ fused changed-mask) over a checkpoint leaf.
+// Chunk fingerprint (+ fused changed-mask) over a checkpoint leaf, and the
+// stand-alone changed mask of two digest arrays.
 //
 // Replaces src/repro/kernels/chunk_delta.py: fingerprint_pallas
-// (_fingerprint_kernel) and fingerprint_changed_pallas (_fp_changed_kernel).
+// (_fingerprint_kernel), fingerprint_changed_pallas (_fp_changed_kernel) and
+// changed_mask_pallas (_changed_kernel).
 //
 // The leaf is read in place as a flat word stream: word k is the k-th
 // 4-, 2- or 1-byte unit of its bytes (bpw), zero-extended to 32 bits, the
@@ -104,6 +106,18 @@ fp_kernel(const void* __restrict__ src, long long n_words, int B,
   }
 }
 
+// mask[g] = any(digest[g, :] != prev[g, :]) as int32, one thread per row.
+// Bound: bytes (16 read and 4 written per row); the digests are int32 bit
+// patterns, compared as the u32 words they are.
+__global__ void changed_kernel(const int2* __restrict__ digest,
+                               const int2* __restrict__ prev, int G,
+                               int32_t* __restrict__ mask) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const int2 d = digest[g], p = prev[g];
+  mask[g] = (d.x != p.x || d.y != p.y) ? 1 : 0;
+}
+
 template <int BPW>
 void launch(const void* src, long long n_words, int B, int G,
             const int32_t* prev, int32_t* digest, int32_t* mask,
@@ -135,5 +149,17 @@ extern "C" int fp_launch(const void* src, long long n_words, int bpw, int B,
     launch<1>(src, n_words, B, G, p, d, m, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// digest/prev: int32 [G, 2] (8-byte aligned rows); mask: int32 [G].
+// Returns cudaGetLastError().
+extern "C" int cm_launch(const void* digest, const void* prev, int G,
+                         void* mask, void* stream) {
+  if (G > 0)
+    changed_kernel<<<(G + THREADS - 1) / THREADS, THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int2*>(digest), static_cast<const int2*>(prev), G,
+        static_cast<int32_t*>(mask));
   return static_cast<int>(cudaGetLastError());
 }

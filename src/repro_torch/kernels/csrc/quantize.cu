@@ -1,8 +1,10 @@
-// Fused gather + blockwise quantize of the CHANGED chunk rows of a float leaf.
+// Fused gather + blockwise quantize of the CHANGED chunk rows of a float leaf,
+// and the plain per-row int8 quantize / dequantize pair.
 //
 // Replaces src/repro/kernels/quantize.py: gather_quantize_pallas
-// (_gather_quant_kernel, int8) and gather_quantize4_pallas
-// (_gather_quant4_kernel, int4 in the half-split nibble layout).
+// (_gather_quant_kernel, int8), gather_quantize4_pallas
+// (_gather_quant4_kernel, int4 in the half-split nibble layout),
+// quantize_pallas (_quant_kernel) and dequantize_pallas (_dequant_kernel).
 //
 // The leaf is read in place in its own dtype (f32, bf16 or f16), as the
 // [G, W] row view of kernels/ops.py::_padded_float_blocks: element e of row r
@@ -22,6 +24,7 @@
 // different sub-blocks. Then every thread quantizes strided elements
 // (q8) or element pairs (q4) with coalesced reads and writes.
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
@@ -101,6 +104,61 @@ gq_kernel(const void* __restrict__ src, long long n, int W, int block,
   }
 }
 
+// Per-row int8 quantize of the [G, B] row view of a flat leaf (elements at
+// or past n read as zero, so the padding the reference builds with jnp.pad
+// is never materialized): scale = max(absmax * fl(1/127), 1e-12), q =
+// clip(rint(x / scale), -127, 127), as the gather kernels above.
+// Bound: bytes (each element read once, 1 byte + 4 bytes a row written).
+// Design: one warp per row; lanes stride the row for coalesced loads, the
+// absmax reduces by shuffles, and the quantize pass re-reads the row (an L1
+// hit at the rows' 256 elements).
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+qr_kernel(const void* __restrict__ src, long long n, int G, int B,
+          int8_t* __restrict__ q, float* __restrict__ scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long g = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (g >= G) return;
+  const long long base = g * B;
+  float m = 0.0f;
+  for (int e = lane; e < B; e += 32)
+    m = fmaxf(m, fabsf(elem<DT>(src, n, base + e)));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const float s = fmaxf(m * (1.0f / 127.0f), 1e-12f);
+  if (lane == 0) scale[g] = s;
+  for (int e = lane; e < B; e += 32)
+    q[base + e] =
+        static_cast<int8_t>(quant<false>(elem<DT>(src, n, base + e), s));
+}
+
+// out[k] = q[k] * scale[k / B] for the first n elements of the [G, B] rows,
+// written in the leaf's dtype (OT 0/1/2 = f32/bf16/f16, round to nearest
+// even, as torch's cast): the reference's trim and astype fused into the
+// store. Bound: bytes (1 + 4/B read, 4 or 2 written per element). Design:
+// one warp per row, lanes over the row, no division per element.
+template <int OT>
+__global__ void __launch_bounds__(THREADS)
+dq_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
+          int B, long long n, void* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long g = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  const long long base = g * B;
+  if (base >= n) return;
+  const float s = scale[g];
+  const int cols = static_cast<int>(n - base < B ? n - base : B);
+  for (int e = lane; e < cols; e += 32) {
+    const float x = static_cast<float>(q[base + e]) * s;
+    if (OT == 0)
+      static_cast<float*>(out)[base + e] = x;
+    else if (OT == 1)
+      static_cast<__nv_bfloat16*>(out)[base + e] = __float2bfloat16_rn(x);
+    else
+      static_cast<__half*>(out)[base + e] = __float2half_rn(x);
+  }
+}
+
 template <int DT>
 void launch(const void* src, long long n, int W, int block,
             const int32_t* idx, int C, void* q_out, float* scales, bool q4,
@@ -131,6 +189,44 @@ extern "C" int gq_launch(const void* src, long long n, int dtype, int W,
     launch<1>(src, n, W, block, ix, C, q_out, sc, q4 != 0, s);
   else if (dtype == 2)
     launch<2>(src, n, W, block, ix, C, q_out, sc, q4 != 0, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// src: the leaf's n elements (dtype code 0/1/2); q: int8 [G, B]; scale: f32
+// [G]. Returns cudaGetLastError().
+extern "C" int qr_launch(const void* src, long long n, int dtype, int G,
+                         int B, void* q, void* scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (G + WARPS - 1) / WARPS;
+  int8_t* qq = static_cast<int8_t*>(q);
+  float* sc = static_cast<float*>(scale);
+  if (dtype == 0)
+    qr_kernel<0><<<blocks, THREADS, 0, s>>>(src, n, G, B, qq, sc);
+  else if (dtype == 1)
+    qr_kernel<1><<<blocks, THREADS, 0, s>>>(src, n, G, B, qq, sc);
+  else if (dtype == 2)
+    qr_kernel<2><<<blocks, THREADS, 0, s>>>(src, n, G, B, qq, sc);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: int8 [G, B]; scale: f32 [G]; out: n elements (dtype code 0/1/2),
+// n <= G * B. Returns cudaGetLastError().
+extern "C" int dq_launch(const void* q, const void* scale, int G, int B,
+                         long long n, int dtype, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (G + WARPS - 1) / WARPS;
+  const int8_t* qq = static_cast<const int8_t*>(q);
+  const float* sc = static_cast<const float*>(scale);
+  if (dtype == 0)
+    dq_kernel<0><<<blocks, THREADS, 0, s>>>(qq, sc, B, n, out);
+  else if (dtype == 1)
+    dq_kernel<1><<<blocks, THREADS, 0, s>>>(qq, sc, B, n, out);
+  else if (dtype == 2)
+    dq_kernel<2><<<blocks, THREADS, 0, s>>>(qq, sc, B, n, out);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

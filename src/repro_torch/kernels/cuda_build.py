@@ -9,7 +9,8 @@ compile in parallel, one ``nvcc`` process each, on the first kernel call of a
 process. A missing ``nvcc`` or a failed build raises: there is no fallback.
 
 Flags: ``-O3 -arch=sm_90a`` and no ``--use_fast_math`` — the quantize kernels
-need IEEE division and ``rintf`` to match the plain versions byte for byte.
+need IEEE division and ``rintf`` to match the plain versions byte for byte,
+and flash attention ``expf``.
 """
 from __future__ import annotations
 
@@ -26,21 +27,34 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_ROOT = os.path.join(REPO_ROOT, "build", "repro_torch_kernels")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("chunk_delta", "quantize")
+SOURCES = ("chunk_delta", "quantize", "flash_attention")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of the extern "C" launchers; every launcher returns the
 # cudaError_t of its launch (0 = success)
 SIGNATURES = {
-    "chunk_delta": {"fp_launch": [_P, _L, _I, _I, _I, _P, _P, _P, _P]},
-    "quantize": {"gq_launch": [_P, _L, _I, _I, _I, _P, _I, _P, _P, _I, _P]},
+    "chunk_delta": {"fp_launch": [_P, _L, _I, _I, _I, _P, _P, _P, _P],
+                    "cm_launch": [_P, _P, _I, _P, _P]},
+    "quantize": {"gq_launch": [_P, _L, _I, _I, _I, _P, _I, _P, _P, _I, _P],
+                 "qr_launch": [_P, _L, _I, _I, _I, _P, _P, _P],
+                 "dq_launch": [_P, _P, _I, _I, _L, _I, _P, _P]},
+    "flash_attention": {"fa_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _F, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}       # ptxas resource report per source
+
+# kernel launches so far in this process, by kernel (see ``launched``)
+launches = dict.fromkeys(
+    ("fingerprint", "fingerprint_changed", "changed_mask", "gather_quantize",
+     "gather_quantize4", "quantize_rows", "dequantize_rows",
+     "flash_attention"), 0)
+_count_lock = threading.Lock()       # the checkpoint writer thread launches too
 
 
 def _nvcc() -> str:
@@ -104,7 +118,11 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def check(err: int, what: str):
-    """Raise on a launcher's nonzero cudaError_t."""
+def launched(err: int, kernel: str):
+    """Raise on a launcher's nonzero cudaError_t, else count one launch of
+    ``kernel`` in ``launches``. Every wrapper calls it right after its
+    launcher, and nothing else counts."""
     if err != 0:
-        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {err}")
+        raise RuntimeError(f"CUDA launch of {kernel} failed: cudaError {err}")
+    with _count_lock:
+        launches[kernel] += 1

@@ -1,4 +1,4 @@
-"""Device dispatch for the checkpoint kernels, plus the wire codecs.
+"""Device dispatch for the hand-written kernels, plus the wire codecs.
 
 Dispatch goes by the tensor's device: a CUDA tensor always launches the
 hand-written kernel (a build or launch failure raises), a CPU tensor runs
@@ -13,15 +13,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import chunk_delta, quantize
-from repro_torch.kernels.chunk_delta import (TILE_G, fingerprint_changed_cuda,
+from repro_torch.kernels import cuda_build
+from repro_torch.kernels.chunk_delta import (TILE_G, changed_mask_cuda,
+                                             fingerprint_changed_cuda,
                                              fingerprint_cuda, grid_rows,
                                              word_view)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.quantize import (Q4_BLOCK, Q8_BLOCK,
+                                          dequantize_rows_cuda,
                                           gather_quantize4_cuda,
-                                          gather_quantize_cuda)
-from repro_torch.kernels.ref import (fingerprint_changed_ref, fingerprint_ref,
-                                     gather_quantize4_ref, gather_quantize_ref)
+                                          gather_quantize_cuda,
+                                          quantize_rows_cuda)
+from repro_torch.kernels.ref import (changed_mask_ref, dequantize_ref,
+                                     fingerprint_changed_ref, fingerprint_ref,
+                                     flash_attention_ref,
+                                     gather_quantize4_ref, gather_quantize_ref,
+                                     quantize_ref)
 
 CHUNK_WORDS = 1024        # 4 KiB chunks (uint32 words)
 
@@ -90,6 +97,14 @@ def fingerprint_and_changed(x: torch.Tensor, prev_digest: torch.Tensor,
         return fingerprint_changed_cuda(x, prev_digest, chunk_words)
     return fingerprint_changed_ref(_as_u32_blocks(x, chunk_words),
                                    prev_digest)
+
+
+def changed_chunks(digest: torch.Tensor, prev_digest: torch.Tensor):
+    """int32 [G] mask (1 = changed) of the rows where two int32 [G, 2]
+    digest arrays differ."""
+    if digest.is_cuda:
+        return changed_mask_cuda(digest, prev_digest)
+    return changed_mask_ref(digest, prev_digest).to(torch.int32)
 
 
 def gather_changed_blocks(x: torch.Tensor, idx: torch.Tensor,
@@ -171,16 +186,54 @@ def chunk_absmax(x: torch.Tensor, chunk_words: int = CHUNK_WORDS):
     return out
 
 
+def quantize_blocks(x: torch.Tensor, block: int = 256):
+    """Flat blockwise int8 quantization of any tensor: (q int8 [G, block],
+    scale f32 [G]), G rounded up to a multiple of TILE_G; the rows past the
+    tensor's end quantize zeros."""
+    n = x.numel()
+    g = -(-n // block)
+    g = -(-g // TILE_G) * TILE_G
+    if x.is_cuda:
+        if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+            x = x.to(torch.float32)
+        return quantize_rows_cuda(x, block, g)
+    flat = x.reshape(-1).to(torch.float32)
+    flat = torch.nn.functional.pad(flat, (0, g * block - n))
+    return quantize_ref(flat.reshape(g, block))
+
+
+def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor, shape,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of ``quantize_blocks``: ``q * scale`` trimmed to ``shape``
+    and cast to ``dtype``."""
+    n = int(np.prod(shape, dtype=np.int64))
+    if q.is_cuda:
+        wide = dtype not in (torch.float32, torch.bfloat16, torch.float16)
+        out = dequantize_rows_cuda(q, scale, n,
+                                   torch.float32 if wide else dtype)
+        return out.reshape(shape).to(dtype)
+    x = dequantize_ref(q, scale)
+    return x.reshape(-1)[:n].reshape(shape).to(dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale=None) -> torch.Tensor:
+    """GQA attention forward: q [B,H,Sq,d], k/v [B,KV,Sk,d] -> [B,H,Sq,d]
+    in q's dtype (causal mask aligned to the last key, as the reference)."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+
+
 def launch_counts() -> dict:
     """Kernel launches so far in this process, by kernel (each wrapper
     counts one per kernel it launches, and nothing else)."""
-    return {**chunk_delta.launches, **quantize.launches}
+    return dict(cuda_build.launches)
 
 
 def reset_launch_counts():
-    for d in (chunk_delta.launches, quantize.launches):
-        for k in d:
-            d[k] = 0
+    for k in cuda_build.launches:
+        cuda_build.launches[k] = 0
 
 
 # ------------------------------------------------------------- q8 wire codec

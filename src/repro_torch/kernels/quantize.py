@@ -1,17 +1,19 @@
-"""Fused gather + blockwise quantize kernels (CUDA, ``csrc/quantize.cu``).
+"""Blockwise quantize kernels (CUDA, ``csrc/quantize.cu``).
 
 The checkpoint fast path for error-bounded slots: the changed chunk rows of
 a float leaf leave the card already in the q8 (int8 + scales) or q4 (packed
 nibbles + scales) wire format, read in one pass from the leaf's own storage.
+Beside them, the plain per-row int8 quantize / dequantize pair of
+``ops.quantize_blocks`` / ``ops.dequantize_blocks``.
 
-Replaces ``gather_quantize_pallas`` / ``gather_quantize4_pallas`` of the
-reference package's ``kernels/quantize.py``. The plain-torch versions are
+Replaces ``gather_quantize_pallas`` / ``gather_quantize4_pallas`` /
+``quantize_pallas`` / ``dequantize_pallas`` of the reference package's
+``kernels/quantize.py``. The plain-torch versions are
 ``kernels/ref.py::gather_quantize_ref`` / ``gather_quantize4_ref`` over the
-padded float row view (``ops._padded_float_blocks``).
+padded float row view (``ops._padded_float_blocks``), and ``quantize_ref`` /
+``dequantize_ref``.
 """
 from __future__ import annotations
-
-import threading
 
 import torch
 
@@ -21,9 +23,6 @@ Q8_BLOCK = 256
 Q4_BLOCK = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-launches = {"gather_quantize": 0, "gather_quantize4": 0}
-_count_lock = threading.Lock()
 
 
 def _launch(x: torch.Tensor, idx: torch.Tensor, chunk_words: int,
@@ -54,9 +53,7 @@ def _launch(x: torch.Tensor, idx: torch.Tensor, chunk_words: int,
                             idx.data_ptr(), C, out.data_ptr(),
                             scales.data_ptr(), int(q4), stream)
     name = "gather_quantize4" if q4 else "gather_quantize"
-    cuda_build.check(err, name)
-    with _count_lock:
-        launches[name] += 1
+    cuda_build.launched(err, name)
     return out, scales
 
 
@@ -72,3 +69,58 @@ def gather_quantize4_cuda(x: torch.Tensor, idx: torch.Tensor,
     """Rows ``idx`` -> (packed uint8 [C, W // 2] half-split nibbles, scales
     f32 [C, W // block])."""
     return _launch(x, idx, chunk_words, block, q4=True)
+
+
+def quantize_rows_cuda(x: torch.Tensor, block: int, rows: int):
+    """The leaf's flat elements as ``rows`` rows of ``block`` (zeros past
+    its end) -> (q int8 [rows, block], scale f32 [rows]), read in place."""
+    if not x.is_cuda:
+        raise ValueError("the CUDA quantize kernel takes a CUDA tensor")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"quantize_rows takes f32/bf16/f16, got {x.dtype}")
+    flat = x.contiguous().reshape(-1)
+    if flat.numel() > rows * block:
+        raise ValueError(f"{flat.numel()} elements exceed {rows} rows of "
+                         f"{block}")
+    q = torch.empty((rows, block), dtype=torch.int8, device=x.device)
+    scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return q, scale
+    lib = cuda_build.library("quantize")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.qr_launch(flat.data_ptr(), flat.numel(),
+                            _DTYPE_CODE[x.dtype], rows, block, q.data_ptr(),
+                            scale.data_ptr(), stream)
+    cuda_build.launched(err, "quantize_rows")
+    return q, scale
+
+
+def dequantize_rows_cuda(q: torch.Tensor, scale: torch.Tensor, n: int,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """The first ``n`` elements of ``q * scale[:, None]`` ([G, B] int8 and
+    [G] f32 on the card), flat, in ``dtype`` (f32/bf16/f16)."""
+    if not q.is_cuda:
+        raise ValueError("the CUDA dequantize kernel takes a CUDA tensor")
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"dequantize_rows writes f32/bf16/f16, got {dtype}")
+    G, B = q.shape
+    if q.dtype != torch.int8 or scale.shape != (G,) \
+            or scale.dtype != torch.float32 or scale.device != q.device:
+        raise ValueError(f"need int8 q [G, B] and f32 scale [{G}] on "
+                         f"{q.device}, got {q.dtype} {list(q.shape)}, "
+                         f"{scale.dtype} {list(scale.shape)} on "
+                         f"{scale.device}")
+    if n > G * B:
+        raise ValueError(f"{n} elements exceed the {G} x {B} rows")
+    q, scale = q.contiguous(), scale.contiguous()
+    out = torch.empty((n,), dtype=dtype, device=q.device)
+    if n == 0:
+        return out
+    lib = cuda_build.library("quantize")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dq_launch(q.data_ptr(), scale.data_ptr(), G, B, n,
+                            _DTYPE_CODE[dtype], out.data_ptr(), stream)
+    cuda_build.launched(err, "dequantize_rows")
+    return out

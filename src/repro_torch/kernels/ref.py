@@ -1,7 +1,8 @@
-"""Plain-torch versions of the checkpoint kernels (the bit-exact references).
+"""Plain-torch versions of the hand-written kernels (their references).
 
 Each function computes what its CUDA kernel computes (kernels/chunk_delta.py,
-kernels/quantize.py) with ordinary tensor ops, on any device. The CPU path of
+kernels/quantize.py, kernels/flash_attention.py) with ordinary tensor ops, on
+any device. The CPU path of
 ``kernels/ops.py`` runs these; ``chip_smoke.py`` holds every kernel against
 them on the card.
 
@@ -13,6 +14,7 @@ int32 bit patterns, the form the CUDA kernels write.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 FP_PRIME1 = 2654435761
@@ -88,6 +90,30 @@ def quantize_ref(x: torch.Tensor):
     scale = _block_scale(x.abs().amax(dim=1), 127.0)
     q = torch.clamp(torch.round(x / scale[:, None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+def dequantize_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """[G, B] int8 x [G] f32 -> f32 [G, B]: q * scale per row."""
+    return q.to(torch.float32) * scale[:, None]
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """q [B,H,Sq,d], k/v [B,KV,Sk,d] with H % KV == 0 -> [B,H,Sq,d] in q's
+    dtype. f32 scores and softmax; the causal mask keeps col <= row +
+    (Sk - Sq) and writes -1e30 elsewhere, so a fully masked row (Sq > Sk)
+    averages v uniformly."""
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, Sq, d).to(torch.float32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32))
+    s = s * float(scale if scale is not None else 1.0 / np.sqrt(d))
+    if causal:
+        keep = torch.arange(Sk, device=q.device)[None, :] \
+            <= torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        s = torch.where(keep, s, torch.full((), -1e30, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", w, v.to(torch.float32))
+    return o.reshape(B, H, Sq, d).to(q.dtype)
 
 
 def gather_quantize_ref(x: torch.Tensor, idx: torch.Tensor, block: int = 256):

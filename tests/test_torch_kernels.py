@@ -1,10 +1,13 @@
-"""The port's checkpoint kernels (plain versions and ops dispatch) held
-against the reference package's on the same inputs, on the CPU.
+"""The port's kernels (plain versions and ops dispatch) held against the
+reference package's on the same inputs, on the CPU.
 
 Inputs are made with numpy from a seed and handed to both packages. The
-reference runs its jnp oracles (on the CPU its ops dispatch to them). The
-bar is exact: digests and masks bit for bit, q8/q4 payloads and scales byte
-for byte, wire codecs byte for byte.
+reference runs its jnp oracles or its Pallas kernels in interpret mode (on
+the CPU its ops dispatch to those). The bar is exact for the checkpoint
+kernels: digests and masks bit for bit, q8/q4 payloads and scales byte for
+byte, wire codecs byte for byte, quantize / dequantize values bit for bit.
+Flash attention is held to the reference package's own test tolerance
+(atol = rtol 2e-6 in f32, 2e-2 in bf16): the two sum in other orders.
 """
 import numpy as np
 import pytest
@@ -13,10 +16,14 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
+from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.checkpoint.pipeline import PIPELINE_CHUNK_WORDS as CW
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.chunk_delta import fingerprint_cuda
-from repro_torch.kernels.quantize import gather_quantize_cuda
+from repro_torch.kernels.chunk_delta import changed_mask_cuda, fingerprint_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.quantize import (dequantize_rows_cuda,
+                                          gather_quantize_cuda,
+                                          quantize_rows_cuda)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -210,6 +217,127 @@ def test_chunk_absmax_matches_reference(kind):
     assert ops.quantizable_dtype(t.dtype) and jops.quantizable_dtype(kind)
 
 
+# ----------------------------------------------- changed mask (stand-alone)
+def test_changed_chunks_matches_reference():
+    """Digests that differ in word 0 only, word 1 only, both, or neither."""
+    rng = np.random.default_rng(4)
+    d = rng.integers(0, 2 ** 32, (64, 2), dtype=np.uint64).astype(np.uint32)
+    prev = d.copy()
+    prev[1::4, 0] ^= np.uint32(1)
+    prev[2::4, 1] ^= np.uint32(0x80000000)
+    prev[3::4] ^= np.uint32(0xFFFFFFFF)
+    want = np.asarray(jops.changed_chunks(jnp.asarray(d), jnp.asarray(prev)))
+    got = ops.changed_chunks(torch.from_numpy(d.view(np.int32).copy()),
+                             torch.from_numpy(prev.view(np.int32).copy()))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.tolist() == [0, 1, 1, 1] * 16
+
+
+# ---------------------------------------------- quantize / dequantize rows
+def _qrow_case(case: str) -> np.ndarray:
+    rng = np.random.default_rng(9)
+    if case == "f32_odd":
+        return (1e-3 * rng.standard_normal(5001)).astype(np.float32)
+    if case == "f32_2d":
+        return rng.standard_normal((37, 129)).astype(np.float32)
+    if case in ("bfloat16", "float16"):
+        return _leaf(case, 3001, rng)
+    if case == "zero_rows":
+        return np.zeros(8 * 256 + 100, np.float32)
+    if case == "ties":
+        return _ties(False, 2048)
+    if case == "pm_absmax":
+        a = (2 * rng.random(16 * 256) - 1).astype(np.float32)
+        a[0::256], a[1::256] = 3.0, -3.0
+        a[600] = -5.0
+        return a
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["f32_odd", "f32_2d", "bfloat16", "float16",
+                                  "zero_rows", "ties", "pm_absmax"])
+def test_quantize_dequantize_blocks_match_reference(case):
+    """q, scales (the folded absmax * fl(1/127)) and the dequantized
+    values trimmed and cast back to the leaf's dtype, bit for bit."""
+    a = _qrow_case(case)
+    jx, t = _pair(a)
+    jq, js = jops.quantize_blocks(jx, block=256)
+    q, s = ops.quantize_blocks(t, 256)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.shape[0] % 8 == 0
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy().view(np.uint32),
+                                  np.asarray(js).view(np.uint32))
+    jback = np.asarray(jops.dequantize_blocks(jq, js, a.shape, jx.dtype))
+    back = ops.dequantize_blocks(q, s, a.shape, t.dtype)
+    assert back.dtype == t.dtype and tuple(back.shape) == a.shape
+    np.testing.assert_array_equal(_np_bits(back), _np_bits(jback))
+
+
+def _np_bits(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16)
+        x = x.numpy()
+    x = np.asarray(x)
+    return x.view(np.uint16) if x.dtype == jnp.bfloat16 \
+        else x.view(np.dtype(f"u{x.dtype.itemsize}"))
+
+
+# --------------------------------------------------------- flash attention
+FLASH_CFGS = [
+    # B, H, KV, Sq, Sk, d, bq, bk, causal (the reference's own test cases)
+    (1, 2, 2, 128, 128, 64, 64, 64, True),
+    (2, 4, 2, 128, 128, 64, 128, 128, True),
+    (1, 8, 1, 64, 256, 32, 64, 64, True),     # MQA, decode-ish Sq < Sk
+    (2, 2, 2, 128, 128, 128, 64, 32, False),  # bidirectional
+    (1, 4, 2, 128, 64, 32, 64, 64, True),     # Sq > Sk: rows that see no key
+]
+
+
+def _qkv(cfg, dtype):
+    B, H, KV, Sq, Sk, d = cfg[:6]
+    rng = np.random.default_rng(sum(cfg[:8]))
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+    if dtype == "bfloat16":
+        arrs = [a.astype(jnp.bfloat16) for a in arrs]
+    return [_pair(a) for a in arrs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cfg", FLASH_CFGS)
+def test_flash_attention_matches_reference_kernel(dtype, cfg):
+    (jq, q), (jk, k), (jv, v) = _qkv(cfg, dtype)
+    causal = cfg[8]
+    want = flash_attention_pallas(jq, jk, jv, causal=causal,
+                                  block_q=cfg[6], block_k=cfg[7])
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and tuple(got.shape) == want.shape
+    tol = 2e-6 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_attention_fully_masked_rows_average_v():
+    """Causal with Sq > Sk: query rows r < Sq - Sk see no key; -1e30 (not
+    -inf) makes them the mean of v, in both packages."""
+    cfg = FLASH_CFGS[-1]
+    (jq, q), (jk, k), (jv, v) = _qkv(cfg, "float32")
+    B, H, KV, Sq, Sk = cfg[:5]
+    got = ops.flash_attention(q, k, v, causal=True)
+    mean_v = v.mean(dim=2).repeat_interleave(H // KV, dim=1)
+    blind = got[:, :, :Sq - Sk]
+    torch.testing.assert_close(blind, mean_v[:, :, None].expand_as(blind),
+                               atol=1e-6, rtol=1e-6)
+    want = np.asarray(flash_attention_pallas(jq, jk, jv, causal=True,
+                                             block_q=64, block_k=64))
+    np.testing.assert_allclose(blind.numpy(), want[:, :, :Sq - Sk],
+                               atol=2e-6, rtol=2e-6)
+
+
 # --------------------------------------------------------------- codecs
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("q4", [False, True], ids=["q8", "q4"])
@@ -254,9 +382,24 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         fingerprint_cuda(x, 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         gather_quantize_cuda(x, torch.zeros(1, dtype=torch.int32), 16, 16)
+    d = torch.zeros(8, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        changed_mask_cuda(d, d)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        quantize_rows_cuda(x, 16, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dequantize_rows_cuda(torch.zeros(8, 16, dtype=torch.int8),
+                             torch.ones(8), 64, torch.float32)
+    qkv = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(qkv, qkv, qkv)
     ops.reset_launch_counts()
     ops.fingerprint_leaf(x, 16)
+    ops.changed_chunks(d, d)
+    ops.dequantize_blocks(*ops.quantize_blocks(x), x.shape, x.dtype)
+    ops.flash_attention(qkv, qkv, qkv)
     assert set(ops.launch_counts().values()) == {0}
+    assert len(ops.launch_counts()) == 8
 
 
 @pytest.mark.cuda
@@ -278,3 +421,23 @@ def test_kernels_match_plain_versions_on_card():
         q, s = kern(x, idx, CW)
         q2, s2 = plain(ops._padded_float_blocks(x, CW), idx)
         assert torch.equal(q, q2) and torch.equal(s, s2)
+    prev = d.clone()
+    prev[::2, 1] ^= 1
+    assert torch.equal(ops.changed_chunks(d, prev),
+                       ref.changed_mask_ref(d, prev).to(torch.int32))
+    q, s = ops.quantize_blocks(x)
+    g = q.shape[0]
+    q2, s2 = ref.quantize_ref(torch.nn.functional.pad(
+        x, (0, g * 256 - x.numel())).reshape(g, 256))
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    back = ops.dequantize_blocks(q, s, x.shape, torch.bfloat16)
+    assert torch.equal(back, ref.dequantize_ref(q, s).reshape(-1)[
+        :x.numel()].to(torch.bfloat16))
+    # both compute in f32: bf16 outputs differ by one ulp at most
+    for dtype, atol, rtol in ((torch.float32, 2e-6, 2e-6),
+                              (torch.bfloat16, 1e-4, 1e-2)):
+        qkv = [torch.randn(s, generator=gen, device=dev).to(dtype)
+               for s in ((2, 8, 200, 64), (2, 2, 200, 64), (2, 2, 200, 64))]
+        torch.testing.assert_close(
+            ops.flash_attention(*qkv).float(),
+            ref.flash_attention_ref(*qkv).float(), atol=atol, rtol=rtol)

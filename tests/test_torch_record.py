@@ -1,8 +1,8 @@
 """The port's record path end to end on the CPU: the launcher records and
 restores (and resumes), ``flor.Session`` records with error-bounded slots
 and the overlapped checkpoint pass, the package stands alone (no jax, no
-reference package), and its entry points refuse to run on the CPU unless
-asked to.
+reference package), its entry points refuse to run on the CPU unless asked
+to, and what is not ported yet raises.
 """
 import glob
 import os
@@ -118,7 +118,9 @@ def test_package_imports_neither_jax_nor_reference():
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=SRC,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert len(mods) >= 40
+    assert len(mods) >= 49
+    assert {"repro_torch.launch.replay", "repro_torch.replay.plan",
+            "repro_torch.kernels.flash_attention"} <= set(mods)
 
 
 def test_launcher_without_device_flag_refuses_cpu(tmp_path):
@@ -138,9 +140,13 @@ def test_launcher_without_device_flag_refuses_cpu(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="replay"):
-        with flor.Session(str(tmp_path / "r"), mode="replay"):
-            pass
+    """Warm start and mesh-sharded / multi-process runs are later slices:
+    they raise instead of running something else."""
     with flor.Session(str(tmp_path / "w")) as sess:
         with pytest.raises(NotImplementedError, match="warm_start"):
             sess.warm_start("train")
+    for kw in ({"mesh": object()}, {"distributed": True}):
+        with pytest.raises(NotImplementedError, match="items 12-13"):
+            flor.FlorContext(str(tmp_path / "m"), "record", **kw)
+    with pytest.raises(NotImplementedError, match="items 12-13"):
+        flor.FlorContext(str(tmp_path / "m"), "replay", mesh=object())
