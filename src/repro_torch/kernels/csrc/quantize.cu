@@ -18,11 +18,20 @@
 // equal the plain version's (no fast math).
 //
 // Bound: bytes (one read of each changed row, a quarter or an eighth of it
-// written). Design: the row's W/block scales are computed first, one warp
-// per sub-block, into shared memory (64 floats at W=16384). The q4 layout
-// needs that: byte j pairs element j with element j+W/2, which lie in
-// different sub-blocks. Then every thread quantizes strided elements
-// (q8) or element pairs (q4) with coalesced reads and writes.
+// written).
+// q8 design: the row's W/block scales are computed first, one warp per
+// sub-block, into shared memory; then every thread quantizes strided
+// elements with coalesced reads and writes (the row is read twice).
+// q4 design (gq4_kernel): each row is read from device memory once, in
+// 16-byte loads. Byte j pairs element j with element j + W/2, so a thread
+// owns 16 consecutive bytes of the packed row: elements [16t, 16t + 16) of
+// the low half and the same of the high half, 32 values kept in registers.
+// A sub-block's absmax reduces by shuffles over the block/16 neighbouring
+// lanes that hold it (both halves at once; a row of one sub-block, W ==
+// block, reduces both halves together), then the thread quantizes its
+// registers and writes its 16 bytes in one store. One thread per 16 bytes
+// of output, 256 threads a CTA over a flat (row, segment) index: a 64 KiB
+// f32 row is 512 threads, 256 KiB of loads in flight on a full SM.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -59,17 +68,17 @@ __device__ __forceinline__ int quant(float x, float scale) {
   return static_cast<int>(fminf(fmaxf(rintf(x / scale), -qmax), qmax));
 }
 
-template <int DT, bool Q4>
+template <int DT>
 __global__ void __launch_bounds__(THREADS)
 gq_kernel(const void* __restrict__ src, long long n, int W, int block,
-          const int32_t* __restrict__ idx, void* __restrict__ q_out,
+          const int32_t* __restrict__ idx, int8_t* __restrict__ q,
           float* __restrict__ scales) {
   extern __shared__ float s_scale[];
   const int c = blockIdx.x;
   const long long base = static_cast<long long>(idx[c]) * W;
   const int n_sub = W / block;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float inv_qmax = Q4 ? 1.0f / 7.0f : 1.0f / 127.0f;
+  const float inv_qmax = 1.0f / 127.0f;
   for (int s = warp; s < n_sub; s += WARPS) {
     const long long sb = base + static_cast<long long>(s) * block;
     float m = 0.0f;
@@ -85,22 +94,110 @@ gq_kernel(const void* __restrict__ src, long long n, int W, int block,
     }
   }
   __syncthreads();
-  if (!Q4) {
-    int8_t* q = static_cast<int8_t*>(q_out) + static_cast<long long>(c) * W;
-    for (int e = threadIdx.x; e < W; e += THREADS)
-      q[e] = static_cast<int8_t>(
-          quant<false>(elem<DT>(src, n, base + e), s_scale[e / block]));
+  q += static_cast<long long>(c) * W;
+  for (int e = threadIdx.x; e < W; e += THREADS)
+    q[e] = static_cast<int8_t>(
+        quant<false>(elem<DT>(src, n, base + e), s_scale[e / block]));
+}
+
+// Two bf16 (DT 1) or f16 (DT 2) values of a 32-bit word as f32, the low
+// half first.
+template <int DT>
+__device__ __forceinline__ void unpack2(uint32_t w, float& a, float& b) {
+  const unsigned short lo = static_cast<unsigned short>(w & 0xFFFF);
+  const unsigned short hi = static_cast<unsigned short>(w >> 16);
+  if (DT == 1) {
+    a = __uint_as_float(static_cast<uint32_t>(lo) << 16);
+    b = __uint_as_float(static_cast<uint32_t>(hi) << 16);
   } else {
-    const int half = W / 2;
-    uint8_t* p = static_cast<uint8_t*>(q_out) +
-        static_cast<long long>(c) * half;
-    for (int j = threadIdx.x; j < half; j += THREADS) {
-      const int lo = quant<true>(elem<DT>(src, n, base + j),
-                                 s_scale[j / block]);
-      const int hi = quant<true>(elem<DT>(src, n, base + j + half),
-                                 s_scale[(j + half) / block]);
-      p[j] = static_cast<uint8_t>((lo & 0xF) | ((hi & 0xF) << 4));
+    a = __half2float(__ushort_as_half(lo));
+    b = __half2float(__ushort_as_half(hi));
+  }
+}
+
+// Elements k .. k + 15 (k a multiple of 16) as f32; one 16-byte load per 4
+// (f32) or 8 (bf16 / f16) elements when all lie in [0, n), else element by
+// element with zeros outside (a row index outside the leaf reads nothing).
+template <int DT>
+__device__ __forceinline__ void load16(const void* src, long long n,
+                                       long long k, float (&x)[16]) {
+  if (k >= 0 && k + 16 <= n) {
+    if (DT == 0) {
+      const float4* p =
+          reinterpret_cast<const float4*>(static_cast<const float*>(src) + k);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float4 f = __ldg(p + v);
+        x[4 * v] = f.x;
+        x[4 * v + 1] = f.y;
+        x[4 * v + 2] = f.z;
+        x[4 * v + 3] = f.w;
+      }
+    } else {
+      const uint4* p = reinterpret_cast<const uint4*>(
+          static_cast<const unsigned short*>(src) + k);
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const uint4 u = __ldg(p + v);
+        unpack2<DT>(u.x, x[8 * v], x[8 * v + 1]);
+        unpack2<DT>(u.y, x[8 * v + 2], x[8 * v + 3]);
+        unpack2<DT>(u.z, x[8 * v + 4], x[8 * v + 5]);
+        unpack2<DT>(u.w, x[8 * v + 6], x[8 * v + 7]);
+      }
     }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) x[e] = elem<DT>(src, n, k + e);
+  }
+}
+
+// q4 gather: thread gid -> row c = gid / segs, segment seg = gid % segs of
+// the W/2 packed bytes (segs = W / 32). G lanes (a power of two <= 32
+// dividing segs) share a sub-block in each half.
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+gq4_kernel(const void* __restrict__ src, long long n, int W, int block,
+           int G, const int32_t* __restrict__ idx, int C,
+           uint8_t* __restrict__ q_out, float* __restrict__ scales) {
+  const int half = W / 2, segs = W / 32, n_sub = W / block;
+  const long long gid = static_cast<long long>(blockIdx.x) * THREADS +
+                        threadIdx.x;
+  const bool valid = gid < static_cast<long long>(C) * segs;
+  const int c = valid ? static_cast<int>(gid / segs) : 0;
+  const int seg = static_cast<int>(gid - static_cast<long long>(c) * segs);
+  float lo[16], hi[16];
+  float m_lo = 0.0f, m_hi = 0.0f;
+  if (valid) {
+    const long long base = static_cast<long long>(idx[c]) * W + 16LL * seg;
+    load16<DT>(src, n, base, lo);
+    load16<DT>(src, n, base + half, hi);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      m_lo = fmaxf(m_lo, fabsf(lo[e]));
+      m_hi = fmaxf(m_hi, fabsf(hi[e]));
+    }
+  }
+  if (n_sub == 1) m_lo = m_hi = fmaxf(m_lo, m_hi);
+  for (int o = 1; o < G; o <<= 1) {          // every lane takes part
+    m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, o));
+    m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, o));
+  }
+  if (!valid) return;
+  const float s_lo = fmaxf(m_lo * (1.0f / 7.0f), 1e-12f);
+  const float s_hi = fmaxf(m_hi * (1.0f / 7.0f), 1e-12f);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int a = quant<true>(lo[e], s_lo), b = quant<true>(hi[e], s_hi);
+    w[e / 4] |= static_cast<uint32_t>((a & 0xF) | ((b & 0xF) << 4))
+                << (8 * (e % 4));
+  }
+  reinterpret_cast<uint4*>(q_out + static_cast<long long>(c) * half)[seg] =
+      make_uint4(w[0], w[1], w[2], w[3]);
+  if ((seg & (G - 1)) == 0) {
+    float* sc = scales + static_cast<long long>(c) * n_sub;
+    sc[16 * seg / block] = s_lo;
+    if (n_sub > 1) sc[(16 * seg + half) / block] = s_hi;
   }
 }
 
@@ -159,36 +256,53 @@ dq_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
   }
 }
 
-template <int DT>
-void launch(const void* src, long long n, int W, int block,
-            const int32_t* idx, int C, void* q_out, float* scales, bool q4,
-            cudaStream_t s) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(W / block);
-  if (q4)
-    gq_kernel<DT, true><<<C, THREADS, smem, s>>>(src, n, W, block, idx, q_out,
-                                                scales);
-  else
-    gq_kernel<DT, false><<<C, THREADS, smem, s>>>(src, n, W, block, idx,
-                                                 q_out, scales);
-}
-
 }  // namespace
 
 // src: the leaf's n elements (dtype code 0/1/2); idx: int32 [C] row indices;
-// q_out: int8 [C, W] (q8) or uint8 [C, W/2] (q4); scales: f32 [C, W/block].
-// Returns cudaGetLastError().
+// q: int8 [C, W]; scales: f32 [C, W/block]. Returns cudaGetLastError().
 extern "C" int gq_launch(const void* src, long long n, int dtype, int W,
-                         int block, const void* idx, int C, void* q_out,
-                         void* scales, int q4, void* stream) {
+                         int block, const void* idx, int C, void* q,
+                         void* scales, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* ix = static_cast<const int32_t*>(idx);
+  int8_t* qq = static_cast<int8_t*>(q);
   float* sc = static_cast<float*>(scales);
+  const size_t smem = sizeof(float) * static_cast<size_t>(W / block);
   if (dtype == 0)
-    launch<0>(src, n, W, block, ix, C, q_out, sc, q4 != 0, s);
+    gq_kernel<0><<<C, THREADS, smem, s>>>(src, n, W, block, ix, qq, sc);
   else if (dtype == 1)
-    launch<1>(src, n, W, block, ix, C, q_out, sc, q4 != 0, s);
+    gq_kernel<1><<<C, THREADS, smem, s>>>(src, n, W, block, ix, qq, sc);
   else if (dtype == 2)
-    launch<2>(src, n, W, block, ix, C, q_out, sc, q4 != 0, s);
+    gq_kernel<2><<<C, THREADS, smem, s>>>(src, n, W, block, ix, qq, sc);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// src: the leaf's n elements (dtype code 0/1/2), 16-byte aligned; idx: int32
+// [C]; q_out: uint8 [C, W/2] (16-byte aligned); scales: f32 [C, W/block].
+// W % 32 == 0; block % 16 == 0; G = block / 16 with W / block even, or G =
+// W / 32 with W == block; G a power of two <= 32 (the wrapper checks).
+// Returns cudaGetLastError().
+extern "C" int gq4_launch(const void* src, long long n, int dtype, int W,
+                          int block, int G, const void* idx, int C,
+                          void* q_out, void* scales, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  uint8_t* qo = static_cast<uint8_t*>(q_out);
+  float* sc = static_cast<float*>(scales);
+  const long long threads = static_cast<long long>(C) * (W / 32);
+  const unsigned blocks = static_cast<unsigned>((threads + THREADS - 1) /
+                                                THREADS);
+  if (dtype == 0)
+    gq4_kernel<0><<<blocks, THREADS, 0, s>>>(src, n, W, block, G, ix, C, qo,
+                                             sc);
+  else if (dtype == 1)
+    gq4_kernel<1><<<blocks, THREADS, 0, s>>>(src, n, W, block, G, ix, C, qo,
+                                             sc);
+  else if (dtype == 2)
+    gq4_kernel<2><<<blocks, THREADS, 0, s>>>(src, n, W, block, G, ix, C, qo,
+                                             sc);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -10,7 +10,10 @@ process. A missing ``nvcc`` or a failed build raises: there is no fallback.
 
 Flags: ``-O3 -arch=sm_90a`` and no ``--use_fast_math`` — the quantize kernels
 need IEEE division and ``rintf`` to match the plain versions byte for byte,
-and flash attention ``expf``.
+and flash attention ``expf``. No library beyond the CUDA runtime is linked:
+the tensor-core flash kernel (``flash_wgmma.cu``) finds
+``cuTensorMapEncodeTiled`` in the already loaded ``libcuda.so.1`` with
+``dlsym``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_ROOT = os.path.join(REPO_ROOT, "build", "repro_torch_kernels")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("chunk_delta", "quantize", "flash_attention")
+SOURCES = ("chunk_delta", "quantize", "flash_attention", "flash_wgmma")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,11 +41,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     "chunk_delta": {"fp_launch": [_P, _L, _I, _I, _I, _P, _P, _P, _P],
                     "cm_launch": [_P, _P, _I, _P, _P]},
-    "quantize": {"gq_launch": [_P, _L, _I, _I, _I, _P, _I, _P, _P, _I, _P],
+    "quantize": {"gq_launch": [_P, _L, _I, _I, _I, _P, _I, _P, _P, _P],
+                 "gq4_launch": [_P, _L, _I, _I, _I, _I, _P, _I, _P, _P, _P],
                  "qr_launch": [_P, _L, _I, _I, _I, _P, _P, _P],
                  "dq_launch": [_P, _P, _I, _I, _L, _I, _P, _P]},
-    "flash_attention": {"fa_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _F, _I, _I, _P]},
+    "flash_attention": {"fa_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _F, _I, _I, _I, _I, _P],
+                        "fa_combine_launch": [_P, _P, _P, _L, _I, _I, _I,
+                                              _P]},
+    "flash_wgmma": {"fa_wgmma_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _F, _I, _I, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
@@ -118,11 +126,16 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def check(err: int, kernel: str):
+    """Raise on a launcher's nonzero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {kernel} failed: cudaError {err}")
+
+
 def launched(err: int, kernel: str):
     """Raise on a launcher's nonzero cudaError_t, else count one launch of
     ``kernel`` in ``launches``. Every wrapper calls it right after its
     launcher, and nothing else counts."""
-    if err != 0:
-        raise RuntimeError(f"CUDA launch of {kernel} failed: cudaError {err}")
+    check(err, kernel)
     with _count_lock:
         launches[kernel] += 1

@@ -25,6 +25,25 @@ Q4_BLOCK = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+def q4_lanes(chunk_words: int, block: int) -> int:
+    """Lanes that share one sub-block in the q4 kernel (``gq4_kernel``): a
+    thread owns 16 packed bytes, i.e. 16 elements of each half-row. Raises
+    for a row shape the kernel does not take."""
+    W = chunk_words
+    n_sub = W // block if block and W % block == 0 else 0
+    if W % 32 or block % 16 or not (n_sub == 1 or n_sub % 2 == 0):
+        raise ValueError(
+            f"the q4 kernel takes chunk_words a multiple of 32 and a block "
+            f"of 16k elements dividing it into 1 or an even number of "
+            f"sub-blocks; got chunk_words {W}, block {block}")
+    lanes = W // 32 if n_sub == 1 else block // 16
+    if lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(f"the q4 kernel reduces a sub-block over a power "
+                         f"of two <= 32 lanes; block {block} of chunk_words "
+                         f"{W} needs {lanes}")
+    return lanes
+
+
 def _launch(x: torch.Tensor, idx: torch.Tensor, chunk_words: int,
             block: int, q4: bool):
     if not x.is_cuda:
@@ -32,9 +51,10 @@ def _launch(x: torch.Tensor, idx: torch.Tensor, chunk_words: int,
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"gather-quantize takes f32/bf16/f16, got {x.dtype}")
     W = chunk_words
-    if W % block or (q4 and W % 2):
+    if W % block:
         raise ValueError(f"chunk_words {W} must be a multiple of block "
-                         f"{block}" + (" and even" if q4 else ""))
+                         f"{block}")
+    lanes = q4_lanes(W, block) if q4 else 0
     flat = x.contiguous().reshape(-1)
     n = flat.numel()
     idx = idx.to(device=x.device, dtype=torch.int32).contiguous()
@@ -49,9 +69,16 @@ def _launch(x: torch.Tensor, idx: torch.Tensor, chunk_words: int,
     lib = cuda_build.library("quantize")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.gq_launch(flat.data_ptr(), n, _DTYPE_CODE[x.dtype], W, block,
-                            idx.data_ptr(), C, out.data_ptr(),
-                            scales.data_ptr(), int(q4), stream)
+        if q4:           # its 16-byte loads need a 16-byte aligned start
+            src = flat if flat.data_ptr() % 16 == 0 else flat.clone()
+            err = lib.gq4_launch(src.data_ptr(), n,
+                                 _DTYPE_CODE[x.dtype], W, block, lanes,
+                                 idx.data_ptr(), C, out.data_ptr(),
+                                 scales.data_ptr(), stream)
+        else:
+            err = lib.gq_launch(flat.data_ptr(), n, _DTYPE_CODE[x.dtype], W,
+                                block, idx.data_ptr(), C, out.data_ptr(),
+                                scales.data_ptr(), stream)
     name = "gather_quantize4" if q4 else "gather_quantize"
     cuda_build.launched(err, name)
     return out, scales
@@ -67,7 +94,9 @@ def gather_quantize_cuda(x: torch.Tensor, idx: torch.Tensor,
 def gather_quantize4_cuda(x: torch.Tensor, idx: torch.Tensor,
                           chunk_words: int, block: int = Q4_BLOCK):
     """Rows ``idx`` -> (packed uint8 [C, W // 2] half-split nibbles, scales
-    f32 [C, W // block])."""
+    f32 [C, W // block]). One read of each row, in 16-byte loads; the row
+    shapes it takes are those ``q4_lanes`` accepts (64 KiB rows of 256-
+    element blocks on the record path)."""
     return _launch(x, idx, chunk_words, block, q4=True)
 
 

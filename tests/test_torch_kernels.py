@@ -7,7 +7,9 @@ the CPU its ops dispatch to those). The bar is exact for the checkpoint
 kernels: digests and masks bit for bit, q8/q4 payloads and scales byte for
 byte, wire codecs byte for byte, quantize / dequantize values bit for bit.
 Flash attention is held to the reference package's own test tolerance
-(atol = rtol 2e-6 in f32, 2e-2 in bf16): the two sum in other orders.
+(atol = rtol 2e-6 in f32, 2e-2 in bf16): the two sum in other orders. The
+card kernels' key split and the tensor-core kernel's hi/lo split of P are
+held here through their plain-torch arithmetic.
 """
 import numpy as np
 import pytest
@@ -18,11 +20,13 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.checkpoint.pipeline import PIPELINE_CHUNK_WORDS as CW
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.chunk_delta import changed_mask_cuda, fingerprint_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.quantize import (dequantize_rows_cuda,
-                                          gather_quantize_cuda,
+                                          gather_quantize4_cuda,
+                                          gather_quantize_cuda, q4_lanes,
                                           quantize_rows_cuda)
 
 
@@ -209,6 +213,60 @@ def test_gather_quantize_matches_reference(case, q4):
                                   np.asarray(js).view(np.uint32))
 
 
+def _gq4_lanes_emulated(rows: torch.Tensor, W: int, block: int):
+    """The q4 kernel's work split in plain torch: thread t of a row owns
+    packed bytes [16t, 16t + 16), i.e. 16 elements of each half-row; each
+    half's absmax reduces over the ``q4_lanes`` neighbouring threads (both
+    halves together when the row is one sub-block)."""
+    G = q4_lanes(W, block)
+    C = rows.shape[0]
+    half, n_sub = W // 2, W // block
+    lo = rows[:, :half].reshape(C, -1, 16)
+    hi = rows[:, half:].reshape(C, -1, 16)
+    m_lo, m_hi = lo.abs().amax(-1), hi.abs().amax(-1)      # per thread
+    if n_sub == 1:
+        m_lo = m_hi = torch.maximum(m_lo, m_hi)
+    m_lo = m_lo.reshape(C, -1, G).amax(-1).repeat_interleave(G, dim=1)
+    m_hi = m_hi.reshape(C, -1, G).amax(-1).repeat_interleave(G, dim=1)
+    recip = torch.full((), 1.0 / 7.0, dtype=torch.float32)
+    s_lo = torch.clamp_min(m_lo * recip, 1e-12)
+    s_hi = torch.clamp_min(m_hi * recip, 1e-12)
+    q_lo = torch.clamp(torch.round(lo / s_lo[..., None]), -7, 7).to(
+        torch.int32) & 0xF
+    q_hi = torch.clamp(torch.round(hi / s_hi[..., None]), -7, 7).to(
+        torch.int32) & 0xF
+    packed = (q_lo | (q_hi << 4)).reshape(C, half).to(torch.uint8)
+    seg0 = torch.arange(0, W // 32, G)                      # group leaders
+    scales = torch.empty(C, n_sub)
+    scales[:, 16 * seg0 // block] = s_lo[:, seg0]
+    if n_sub > 1:
+        scales[:, (16 * seg0 + half) // block] = s_hi[:, seg0]
+    return packed, scales
+
+
+@pytest.mark.parametrize("W,block", [(CW, 256), (1024, 256), (256, 256),
+                                     (64, 64), (512, 16)])
+def test_q4_kernel_work_split_matches_plain(W, block):
+    """The q4 gather kernel's lanes, segments and scale writes, emulated in
+    torch, give the plain version's bytes and scales exactly (exact .5 ties
+    and random rows)."""
+    rng = np.random.default_rng(W + block)
+    rows = torch.from_numpy(np.concatenate([
+        rng.standard_normal((3, W)).astype(np.float32),
+        np.resize(_ties(True, 256)[:256], (1, W))]))
+    q, s = _gq4_lanes_emulated(rows, W, block)
+    q2, s2 = ref.gather_quantize4_ref(rows, torch.arange(4), block)
+    assert torch.equal(q, q2)
+    assert torch.equal(s.view(torch.int32), s2.view(torch.int32))
+
+
+@pytest.mark.parametrize("W,block", [(16, 16), (768, 256), (2048, 1024),
+                                     (96, 96), (4096, 8)])
+def test_q4_kernel_refuses_row_shapes_it_does_not_take(W, block):
+    with pytest.raises(ValueError, match="q4 kernel"):
+        q4_lanes(W, block)
+
+
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "float16"])
 def test_chunk_absmax_matches_reference(kind):
     jx, t = _pair(_leaf(kind, 3 * 64 + 5, np.random.default_rng(3)))
@@ -338,6 +396,187 @@ def test_flash_attention_fully_masked_rows_average_v():
                                atol=2e-6, rtol=2e-6)
 
 
+# ------------------------------------------- flash attention: key split
+SPLIT_SHAPES = [
+    # B, H, Sq, Sk, d
+    (1, 40, 128, 2048, 128),      # chip_smoke's Sq < Sk case: 3 splits
+    (1, 40, 2048, 2048, 128),     # qwen3-14b layer: grid large, no split
+    (8, 12, 512, 512, 64),        # florbench-100m: no split
+    (2, 4, 200, 200, 24),         # ragged, CUDA-core route, 4 splits
+    (1, 4, 320, 256, 64),         # rows that see no key, 4 splits
+    (1, 1, 1, 1, 64),             # one key
+    (1, 2, 64, 4097, 128),        # ragged last tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_flash_split_plan_covers_every_key_once(shape, dtype):
+    """The wrapper's split plan (a pure function of the shapes): the key
+    ranges of the splits are non-empty, in order, and cover [0, Sk) exactly
+    once; a split grid stays within the CTAs the card holds at once for the
+    route, and a grid that fills them is not split."""
+    B, H, Sq, Sk, d = shape
+    p = fa.plan(B, H, Sq, Sk, d, dtype)
+    assert p["route"] == ("wgmma" if dtype == torch.bfloat16
+                          and d in (64, 128) else "cuda-core")
+    ranges = fa.split_ranges(Sk, p["n_split"], p["per"])
+    assert len(ranges) == p["n_split"] >= 1
+    covered = np.zeros(Sk, np.int64)
+    for k0, k1 in ranges:
+        assert k0 < k1 and k0 % fa.KEY_TILE == 0
+        covered[k0:k1] += 1
+    assert (covered == 1).all()
+    assert [r[0] for r in ranges] == sorted(r[0] for r in ranges)
+    ctas = -(-Sq // p["block_q"]) * H * B
+    slots = fa.RESIDENT_CTAS[p["route"]]
+    if ctas * 2 > slots or Sk <= fa.KEY_TILE:
+        assert p["n_split"] == 1
+    else:
+        assert 2 <= p["n_split"] and ctas * p["n_split"] <= slots
+
+
+def _split_combine(q, k, v, *, causal, n_split, per, block_q, block_k=64):
+    """Plain-torch split-and-combine in flash_attention_ref's arithmetic (f32
+    scores, -1e30 causal mask), following the kernels' rules: each query
+    tile runs the key tiles up to its last row's diagonal when its every row
+    sees key 0 (else all of them), split s takes tiles [s per, (s + 1) per)
+    of those; a split with no tile has m = -inf, l = 0 and weighs 0."""
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G, off = H // KV, Sk - Sq
+    s = torch.einsum("bkgqd,bksd->bkgqs",
+                     q.reshape(B, KV, G, Sq, d).float(), k.float())
+    s = s / np.sqrt(d)
+    if causal:
+        keep = torch.arange(Sk)[None, :] <= torch.arange(Sq)[:, None] + off
+        s = torch.where(keep, s, torch.full((), -1e30))
+    n_kt = -(-Sk // block_k)
+    ms, ls, accs = [], [], []
+    for sp in range(n_split):
+        m_t, l_t, a_t = [], [], []
+        for row0 in range(0, Sq, block_q):
+            rows = slice(row0, min(row0 + block_q, Sq))
+            kt_end = n_kt
+            if causal and row0 + off >= 0:
+                kt_end = min(n_kt, (min(row0 + block_q, Sq) - 1 + off)
+                             // block_k + 1)
+            k0 = sp * per * block_k
+            k1 = min(min((sp + 1) * per, kt_end) * block_k, Sk)
+            st = s[..., rows, :]
+            if k1 <= k0:
+                m_t.append(torch.full(st.shape[:-1], -torch.inf))
+                l_t.append(torch.zeros(st.shape[:-1]))
+                a_t.append(torch.zeros(*st.shape[:-1], d))
+                continue
+            st = st[..., k0:k1]
+            m = st.amax(dim=-1)
+            e = torch.exp(st - m[..., None])
+            m_t.append(m)
+            l_t.append(e.sum(dim=-1))
+            a_t.append(torch.einsum("bkgqs,bksd->bkgqd", e,
+                                    v[:, :, k0:k1].float()))
+        ms.append(torch.cat(m_t, dim=-1))
+        ls.append(torch.cat(l_t, dim=-1))
+        accs.append(torch.cat(a_t, dim=-2))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    m_max = torch.where(l > 0, m, -torch.inf).amax(dim=0)
+    w = torch.where(l > 0, torch.exp(m - m_max), torch.zeros(()))
+    o = (w[..., None] * acc).sum(0) / torch.clamp_min((w * l).sum(0),
+                                                      1e-30)[..., None]
+    # partials with no key tile, and partials of rows that see a key but
+    # none in this split (scored -1e30 throughout): both must weigh 0
+    sees = (torch.arange(Sq) + off >= 0)
+    masked = (l > 0) & (m <= -1e30) & sees
+    return o.reshape(B, H, Sq, d), int((l == 0).sum()), int(masked.sum())
+
+
+@pytest.mark.parametrize("cfg", [
+    # B, H, KV, Sq, Sk, d, route of the plan
+    (1, 2, 1, 128, 2048, 32, "wgmma"),
+    (1, 2, 1, 128, 2048, 32, "cuda-core"),
+    (1, 2, 1, 256, 256, 32, "wgmma"),          # splits that see no key
+    (1, 2, 1, 256, 256, 32, "cuda-core"),
+    (1, 4, 2, 320, 256, 64, "wgmma"),          # rows that see no key
+    (1, 4, 2, 320, 128, 32, "cuda-core"),
+], ids=["sq<sk-bq128", "sq<sk-bq64", "square-bq128", "square-bq64",
+        "blind-bq128", "blind-bq64"])
+def test_flash_split_combine_matches_reference_kernel(cfg):
+    """Splitting the keys and combining the partials computes the
+    reference's function: held against flash_attention_pallas (interpret
+    mode) at 2e-6 in f32. The split counts are those the wrapper picks at
+    this (narrow) grid, at least 2; on the square causal shape some splits
+    see no key tile and some rows see no key in a split (both weigh 0), and
+    rows that see no key at all still average v."""
+    B, H, KV, Sq, Sk, d, rt = cfg
+    rng = np.random.default_rng(Sq + Sk)
+    arrs = [rng.standard_normal(sh).astype(np.float32)
+            for sh in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+    (jq, q), (jk, k), (jv, v) = (_pair(a) for a in arrs)
+    bq = fa.query_tile(rt)
+    n_split, per = fa.split_plan(B, H, Sq, Sk, bq, fa.RESIDENT_CTAS[rt])
+    assert n_split >= 2
+    got, n_empty, n_masked = _split_combine(q, k, v, causal=True,
+                                            n_split=n_split, per=per,
+                                            block_q=bq)
+    want = np.asarray(flash_attention_pallas(jq, jk, jv, causal=True,
+                                             block_q=64, block_k=64))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=2e-6)
+    if Sq > Sk:
+        mean_v = v.mean(dim=2).repeat_interleave(H // KV, dim=1)
+        blind = got[:, :, :Sq - Sk]
+        torch.testing.assert_close(blind, mean_v[:, :, None].expand_as(blind),
+                                   atol=1e-6, rtol=1e-6)
+    if Sq == Sk:      # early query tiles end before the last splits
+        assert n_empty > 0
+        assert n_masked > 0 or bq == 64
+
+
+def _hi_lo(p: torch.Tensor, dtype):
+    hi = p.to(dtype)
+    return hi, (p - hi.float()).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_p_hi_lo_reconstructs_p(dtype):
+    """hi = fl16(p), lo = fl16(p - hi): hi + lo is p to within 2**-16
+    relative (plus half of f16's subnormal spacing, 2**-25, where lo falls
+    below f16's normal range), for p over the softmax's range (0, 1]."""
+    rng = np.random.default_rng(5)
+    p = torch.from_numpy(np.exp(-rng.uniform(0, 20, 100_000))
+                         .astype(np.float32))
+    hi, lo = _hi_lo(p, dtype)
+    err = (hi.float() + lo.float() - p).abs()
+    floor = 2.0 ** -25 if dtype == torch.float16 else 0.0
+    assert bool((err <= 2.0 ** -16 * p + floor).all())
+    # hi alone is 8 (bf16) or 11 (f16) bits: far from that bound
+    assert float(((hi.float() - p).abs() / p).max()) > 2.0 ** -13
+
+
+def test_flash_p_hi_lo_keeps_cancelling_rows_in_tolerance():
+    """Why the tensor-core kernel splits P: on a row whose output cancels,
+    a single bf16 rounding of P before P.V leaves FLASH_TOL's (atol 1e-4,
+    rtol 1e-2), the hi + lo pair stays inside it. Seeded worst case of the
+    2**-9 sum(p |v|) bound: v = +-1 following the sign of p's rounding
+    error, 2048 keys, scores in [-1, 0]."""
+    rng = np.random.default_rng(9)
+    p = torch.from_numpy(np.exp(-rng.uniform(0, 1, 2048))
+                         .astype(np.float32))
+    hi, lo = _hi_lo(p, torch.bfloat16)
+    v = torch.sign(hi.float() - p)
+    v[v == 0] = 1.0
+    l = p.sum()
+    want = (p.double() @ v.double()) / l.double()
+
+    def off_tol(o):
+        return float((o.double() - want).abs() - 1e-2 * want.abs()) > 1e-4
+
+    single = (hi.float() @ v) / l
+    pair = (hi.float() @ v + lo.float() @ v) / l
+    assert off_tol(single)
+    assert not off_tol(pair)
+
+
 # --------------------------------------------------------------- codecs
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("q4", [False, True], ids=["q8", "q4"])
@@ -382,6 +621,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         fingerprint_cuda(x, 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         gather_quantize_cuda(x, torch.zeros(1, dtype=torch.int32), 16, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gather_quantize4_cuda(x, torch.zeros(1, dtype=torch.int32), 32, 16)
     d = torch.zeros(8, 2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         changed_mask_cuda(d, d)
@@ -433,11 +674,22 @@ def test_kernels_match_plain_versions_on_card():
     back = ops.dequantize_blocks(q, s, x.shape, torch.bfloat16)
     assert torch.equal(back, ref.dequantize_ref(q, s).reshape(-1)[
         :x.numel()].to(torch.bfloat16))
-    # both compute in f32: bf16 outputs differ by one ulp at most
-    for dtype, atol, rtol in ((torch.float32, 2e-6, 2e-6),
-                              (torch.bfloat16, 1e-4, 1e-2)):
+    # both compute in f32: bf16 / f16 outputs differ by one ulp at most.
+    # Shapes [B, H, KV, Sq, Sk, d]: both routes, a key split at Sq < Sk
+    # (7 splits on the tensor cores, 4 on the CUDA cores), d 24 (CUDA-core
+    # route in f16)
+    tol = {torch.float32: (2e-6, 2e-6), torch.bfloat16: (1e-4, 1e-2),
+           torch.float16: (1e-4, 1e-2)}
+    for dtype, (B, H, KV, Sq, Sk, d) in (
+            (torch.float32, (2, 8, 2, 200, 200, 64)),
+            (torch.bfloat16, (2, 8, 2, 200, 200, 64)),
+            (torch.float16, (2, 8, 2, 200, 200, 128)),
+            (torch.bfloat16, (1, 40, 8, 128, 2048, 128)),
+            (torch.float32, (1, 40, 8, 128, 2048, 128)),
+            (torch.float16, (2, 4, 2, 200, 200, 24))):
         qkv = [torch.randn(s, generator=gen, device=dev).to(dtype)
-               for s in ((2, 8, 200, 64), (2, 2, 200, 64), (2, 2, 200, 64))]
+               for s in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+        atol, rtol = tol[dtype]
         torch.testing.assert_close(
             ops.flash_attention(*qkv).float(),
             ref.flash_attention_ref(*qkv).float(), atol=atol, rtol=rtol)
