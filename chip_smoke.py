@@ -18,11 +18,12 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
      TrainState (its own ``init_state``, with seeded moment values),
      odd-length bf16/f16/uint8/int64/bool leaves, a scalar leaf,
      0xFFFFFFFF and all-zero rows, exact .5 ties, C=1 and partial last
-     rows: digests and masks bit for bit, q8/q4 payloads and scales byte
-     for byte;
+     rows, chunk_words 1024, 64 (a partly idle last CTA) and, for q8, 16
+     (one lane a sub-block): digests and masks bit for bit, q8/q4 payloads
+     and scales byte for byte;
    - the stand-alone changed mask on the TrainState's digests against a
      prev that differs in a seeded subset of rows (in one word only for
-     some), bit for bit;
+     some), bit for bit, and its per-launch floor (one call on 8 rows);
    - quantize_blocks / dequantize_blocks on the largest TrainState leaf
      and edge cases (odd lengths in f32/bf16/f16, all-zero rows, exact .5
      ties, +-absmax rows): q, scales and values bit for bit;
@@ -268,7 +269,7 @@ def tie_rows(torch, dev, q4: bool, W: int = 16384):
     return torch.cat([halves, 2.0 * halves])            # scale 1, scale 2
 
 
-def edge_q_cases(torch, gen, dev):
+def edge_q_cases(torch, gen, dev, q4: bool):
     """[(name, leaf, idx, chunk_words)] for the gather-quantize kernels."""
     W = 16384
     cases = []
@@ -290,6 +291,15 @@ def edge_q_cases(torch, gen, dev):
                                                       device=dev), 1024))
     cases.append(("chunk_words 64", x[:1000], torch.arange(16, device=dev),
                   64))
+    # the last 67 rows at chunk_words 64, the last one partial: the second
+    # CTA's first warp has idle lanes that join the shuffles
+    g64 = -(-x.numel() // 64)
+    cases.append(("chunk_words 64, last CTA partly idle", x,
+                  torch.arange(g64 - 67, g64, device=dev), 64))
+    if not q4:           # one lane a sub-block (the q4 kernel takes W % 32)
+        g16 = -(-x.numel() // 16)
+        cases.append(("chunk_words 16", x,
+                      torch.arange(g16 - 101, g16, device=dev), 16))
     return cases
 
 
@@ -363,7 +373,7 @@ def kernel_phase(torch, dev, hbm_bps, cfg):
         kern = ops.gather_quantize4_blocks if q4 else ops.gather_quantize_blocks
         plain_fn = ref.gather_quantize4_ref if q4 else ref.gather_quantize_ref
         cases = [(p, x, None, CW) for p, x in moments] \
-            + edge_q_cases(torch, gen, dev) \
+            + edge_q_cases(torch, gen, dev, q4) \
             + [("exact .5 ties", tie_rows(torch, dev, q4),
                 torch.tensor([0, 1], device=dev), CW)]
         err = 0.0
@@ -455,7 +465,14 @@ def changed_mask_phase(torch, dev, gen, hbm_bps, digests) -> dict:
                    [lambda a=a, p=p: ref.changed_mask_ref(a, p)
                     .to(torch.int32) for a, p in zip(digests, prevs)],
                    2 * G * 8 + G * 4, 2 * G, 0.0)
-    return dict(r, launches=launches)
+    # the per-launch floor: one call on an 8-row digest pair, timed alike
+    d8, p8 = d[:8].contiguous(), prev[:8].contiguous()
+    floor = time_calls(torch, [lambda: ops.changed_chunks(d8, p8)])["ms"]
+    say(f"kernel changed_mask: one launch on 8 digest rows {floor:.5f} ms on "
+        f"the card (profiler); {len(digests)} launches x that floor = "
+        f"{len(digests) * floor:.4f} ms beside a byte bound of "
+        f"{r['bound_ms']:.5f} ms for the pass")
+    return dict(r, launches=launches, launch_floor_ms=floor)
 
 
 def quantize_cases(torch, gen, dev, state):
@@ -984,7 +1001,7 @@ def kernels_line(results: dict, paths: dict) -> list:
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "pass_ms": r["pass_ms"], "dispatch_us": r["dispatch_us"],
                  "path": path}
-        for extra in ("cases", "routes"):
+        for extra in ("cases", "routes", "launch_floor_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         line.append(entry)
@@ -992,7 +1009,7 @@ def kernels_line(results: dict, paths: dict) -> list:
 
 
 # kernels new in this slice: their ptxas -v report is printed after the build
-NEW_KERNELS = ("fa_wgmma_kernel", "combine_kernel", "gq4_kernel")
+NEW_KERNELS = ("gq8_kernel",)
 
 
 def ptxas_report(build_log: dict, names) -> list:

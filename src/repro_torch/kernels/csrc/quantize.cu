@@ -8,8 +8,8 @@
 //
 // The leaf is read in place in its own dtype (f32, bf16 or f16), as the
 // [G, W] row view of kernels/ops.py::_padded_float_blocks: element e of row r
-// is flat element r*W + e, and elements at or past n read as zero. One block
-// per changed row (idx[c]); frozen rows are never read. Per `block`-element
+// is flat element r*W + e, and elements at or past n read as zero. Only the
+// changed rows (idx[c]) are read; frozen rows never are. Per `block`-element
 // sub-block: scale = max(absmax * fl(1/qmax), 1e-12), q = clip(rint(x /
 // scale), -qmax, qmax) with qmax 127 (q8) or 7 (q4). The scale multiplies by
 // the f32-rounded reciprocal because that is what the reference package
@@ -18,20 +18,20 @@
 // equal the plain version's (no fast math).
 //
 // Bound: bytes (one read of each changed row, a quarter or an eighth of it
-// written).
-// q8 design: the row's W/block scales are computed first, one warp per
-// sub-block, into shared memory; then every thread quantizes strided
-// elements with coalesced reads and writes (the row is read twice).
-// q4 design (gq4_kernel): each row is read from device memory once, in
-// 16-byte loads. Byte j pairs element j with element j + W/2, so a thread
-// owns 16 consecutive bytes of the packed row: elements [16t, 16t + 16) of
-// the low half and the same of the high half, 32 values kept in registers.
-// A sub-block's absmax reduces by shuffles over the block/16 neighbouring
-// lanes that hold it (both halves at once; a row of one sub-block, W ==
-// block, reduces both halves together), then the thread quantizes its
-// registers and writes its 16 bytes in one store. One thread per 16 bytes
-// of output, 256 threads a CTA over a flat (row, segment) index: a 64 KiB
-// f32 row is 512 threads, 256 KiB of loads in flight on a full SM.
+// written). Both gathers read each changed row from device memory once, in
+// 16-byte loads, into registers, and write their output in 16-byte stores;
+// a sub-block's absmax reduces by shuffles over the neighbouring lanes that
+// hold it (block/16; W/32 for a q4 row of one sub-block). One thread per
+// 16 bytes of output, 256 threads a CTA over a flat (row, segment) index;
+// lanes past the last row join the shuffles with 0.
+// q8 design (gq8_kernel): thread t of a row owns elements [16t, 16t + 16),
+// which are its 16 output bytes: a 64 KiB f32 row is 1024 threads, 64 bytes
+// of loads in flight each.
+// q4 design (gq4_kernel): byte j pairs element j with element j + W/2, so a
+// thread owns 16 consecutive bytes of the packed row: elements [16t, 16t +
+// 16) of the low half and the same of the high half, 32 values kept in
+// registers, both halves reduced at once (a row of one sub-block, W ==
+// block, reduces both halves together). A 64 KiB f32 row is 512 threads.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -66,38 +66,6 @@ template <bool Q4>
 __device__ __forceinline__ int quant(float x, float scale) {
   const float qmax = Q4 ? 7.0f : 127.0f;
   return static_cast<int>(fminf(fmaxf(rintf(x / scale), -qmax), qmax));
-}
-
-template <int DT>
-__global__ void __launch_bounds__(THREADS)
-gq_kernel(const void* __restrict__ src, long long n, int W, int block,
-          const int32_t* __restrict__ idx, int8_t* __restrict__ q,
-          float* __restrict__ scales) {
-  extern __shared__ float s_scale[];
-  const int c = blockIdx.x;
-  const long long base = static_cast<long long>(idx[c]) * W;
-  const int n_sub = W / block;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float inv_qmax = 1.0f / 127.0f;
-  for (int s = warp; s < n_sub; s += WARPS) {
-    const long long sb = base + static_cast<long long>(s) * block;
-    float m = 0.0f;
-    for (int e = lane; e < block; e += 32)
-      m = fmaxf(m, fabsf(elem<DT>(src, n, sb + e)));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (lane == 0) {
-      const float scale = fmaxf(m * inv_qmax, 1e-12f);
-      s_scale[s] = scale;
-      scales[static_cast<long long>(c) * n_sub + s] = scale;
-    }
-  }
-  __syncthreads();
-  q += static_cast<long long>(c) * W;
-  for (int e = threadIdx.x; e < W; e += THREADS)
-    q[e] = static_cast<int8_t>(
-        quant<false>(elem<DT>(src, n, base + e), s_scale[e / block]));
 }
 
 // Two bf16 (DT 1) or f16 (DT 2) values of a 32-bit word as f32, the low
@@ -149,6 +117,42 @@ __device__ __forceinline__ void load16(const void* src, long long n,
 #pragma unroll
     for (int e = 0; e < 16; ++e) x[e] = elem<DT>(src, n, k + e);
   }
+}
+
+// q8 gather: thread gid -> row c = gid / segs, segment seg = gid % segs of
+// the row (segs = W / 16). G = block / 16 lanes (a power of two <= 32)
+// share a sub-block.
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+gq8_kernel(const void* __restrict__ src, long long n, int W, int block,
+           int G, const int32_t* __restrict__ idx, int C,
+           int8_t* __restrict__ q, float* __restrict__ scales) {
+  const int segs = W / 16, n_sub = W / block;
+  const long long gid = static_cast<long long>(blockIdx.x) * THREADS +
+                        threadIdx.x;
+  const bool valid = gid < static_cast<long long>(C) * segs;
+  const int c = valid ? static_cast<int>(gid / segs) : 0;
+  const int seg = static_cast<int>(gid - static_cast<long long>(c) * segs);
+  float x[16];
+  float m = 0.0f;
+  if (valid) {
+    load16<DT>(src, n, static_cast<long long>(idx[c]) * W + 16LL * seg, x);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) m = fmaxf(m, fabsf(x[e]));
+  }
+  for (int o = 1; o < G; o <<= 1)            // every lane takes part
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (!valid) return;
+  const float s = fmaxf(m * (1.0f / 127.0f), 1e-12f);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    w[e / 4] |= static_cast<uint32_t>(quant<false>(x[e], s) & 0xFF)
+                << (8 * (e % 4));
+  reinterpret_cast<uint4*>(q + static_cast<long long>(c) * W)[seg] =
+      make_uint4(w[0], w[1], w[2], w[3]);
+  if ((seg & (G - 1)) == 0)
+    scales[static_cast<long long>(c) * n_sub + 16 * seg / block] = s;
 }
 
 // q4 gather: thread gid -> row c = gid / segs, segment seg = gid % segs of
@@ -258,22 +262,29 @@ dq_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
 
 }  // namespace
 
-// src: the leaf's n elements (dtype code 0/1/2); idx: int32 [C] row indices;
-// q: int8 [C, W]; scales: f32 [C, W/block]. Returns cudaGetLastError().
-extern "C" int gq_launch(const void* src, long long n, int dtype, int W,
-                         int block, const void* idx, int C, void* q,
-                         void* scales, void* stream) {
+// src: the leaf's n elements (dtype code 0/1/2), 16-byte aligned; idx: int32
+// [C]; q: int8 [C, W] (16-byte aligned); scales: f32 [C, W/block]. W % block
+// == 0; G = block / 16, a power of two <= 32 (the wrapper checks). Returns
+// cudaGetLastError().
+extern "C" int gq8_launch(const void* src, long long n, int dtype, int W,
+                          int block, int G, const void* idx, int C, void* q,
+                          void* scales, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   int8_t* qq = static_cast<int8_t*>(q);
   float* sc = static_cast<float*>(scales);
-  const size_t smem = sizeof(float) * static_cast<size_t>(W / block);
+  const long long threads = static_cast<long long>(C) * (W / 16);
+  const unsigned blocks = static_cast<unsigned>((threads + THREADS - 1) /
+                                                THREADS);
   if (dtype == 0)
-    gq_kernel<0><<<C, THREADS, smem, s>>>(src, n, W, block, ix, qq, sc);
+    gq8_kernel<0><<<blocks, THREADS, 0, s>>>(src, n, W, block, G, ix, C, qq,
+                                             sc);
   else if (dtype == 1)
-    gq_kernel<1><<<C, THREADS, smem, s>>>(src, n, W, block, ix, qq, sc);
+    gq8_kernel<1><<<blocks, THREADS, 0, s>>>(src, n, W, block, G, ix, C, qq,
+                                             sc);
   else if (dtype == 2)
-    gq_kernel<2><<<C, THREADS, smem, s>>>(src, n, W, block, ix, qq, sc);
+    gq8_kernel<2><<<blocks, THREADS, 0, s>>>(src, n, W, block, G, ix, C, qq,
+                                             sc);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -41,7 +41,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "chunk_delta": {"fp_launch": [_P, _L, _I, _I, _I, _P, _P, _P, _P],
                     "cm_launch": [_P, _P, _I, _P, _P]},
-    "quantize": {"gq_launch": [_P, _L, _I, _I, _I, _P, _I, _P, _P, _P],
+    "quantize": {"gq8_launch": [_P, _L, _I, _I, _I, _I, _P, _I, _P, _P, _P],
                  "gq4_launch": [_P, _L, _I, _I, _I, _I, _P, _I, _P, _P, _P],
                  "qr_launch": [_P, _L, _I, _I, _I, _P, _P, _P],
                  "dq_launch": [_P, _P, _I, _I, _L, _I, _P, _P]},

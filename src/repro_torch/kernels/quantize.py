@@ -44,6 +44,21 @@ def q4_lanes(chunk_words: int, block: int) -> int:
     return lanes
 
 
+def q8_lanes(chunk_words: int, block: int) -> int:
+    """Lanes that share one sub-block in the q8 kernel (``gq8_kernel``): a
+    thread owns 16 consecutive elements of the row, its 16 output bytes.
+    Raises for a row shape the kernel does not take."""
+    W = chunk_words
+    lanes = block // 16
+    if not 0 < block <= W or W % block or block % 16 or lanes > 32 \
+            or lanes & (lanes - 1):
+        raise ValueError(
+            f"the q8 kernel takes a block of 16 times a power of two, at "
+            f"most 512 elements, dividing chunk_words; got chunk_words {W}, "
+            f"block {block}")
+    return lanes
+
+
 def _launch(x: torch.Tensor, idx: torch.Tensor, chunk_words: int,
             block: int, q4: bool):
     if not x.is_cuda:
@@ -54,7 +69,7 @@ def _launch(x: torch.Tensor, idx: torch.Tensor, chunk_words: int,
     if W % block:
         raise ValueError(f"chunk_words {W} must be a multiple of block "
                          f"{block}")
-    lanes = q4_lanes(W, block) if q4 else 0
+    lanes = q4_lanes(W, block) if q4 else q8_lanes(W, block)
     flat = x.contiguous().reshape(-1)
     n = flat.numel()
     idx = idx.to(device=x.device, dtype=torch.int32).contiguous()
@@ -67,27 +82,24 @@ def _launch(x: torch.Tensor, idx: torch.Tensor, chunk_words: int,
     if C == 0:
         return out, scales
     lib = cuda_build.library("quantize")
+    launch = lib.gq4_launch if q4 else lib.gq8_launch
+    # the 16-byte loads need a 16-byte aligned start
+    src = flat if flat.data_ptr() % 16 == 0 else flat.clone()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if q4:           # its 16-byte loads need a 16-byte aligned start
-            src = flat if flat.data_ptr() % 16 == 0 else flat.clone()
-            err = lib.gq4_launch(src.data_ptr(), n,
-                                 _DTYPE_CODE[x.dtype], W, block, lanes,
-                                 idx.data_ptr(), C, out.data_ptr(),
-                                 scales.data_ptr(), stream)
-        else:
-            err = lib.gq_launch(flat.data_ptr(), n, _DTYPE_CODE[x.dtype], W,
-                                block, idx.data_ptr(), C, out.data_ptr(),
-                                scales.data_ptr(), stream)
-    name = "gather_quantize4" if q4 else "gather_quantize"
-    cuda_build.launched(err, name)
+        err = launch(src.data_ptr(), n, _DTYPE_CODE[x.dtype], W, block,
+                     lanes, idx.data_ptr(), C, out.data_ptr(),
+                     scales.data_ptr(), stream)
+    cuda_build.launched(err, "gather_quantize4" if q4 else "gather_quantize")
     return out, scales
 
 
 def gather_quantize_cuda(x: torch.Tensor, idx: torch.Tensor,
                          chunk_words: int, block: int = Q8_BLOCK):
     """Rows ``idx`` of the leaf's [G, chunk_words] float view -> (q int8
-    [C, W], scales f32 [C, W // block])."""
+    [C, W], scales f32 [C, W // block]). One read of each row, in 16-byte
+    loads; the row shapes it takes are those ``q8_lanes`` accepts (64 KiB
+    rows of 256-element blocks on the record path)."""
     return _launch(x, idx, chunk_words, block, q4=False)
 
 

@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                           gather_quantize4_cuda,
                                           gather_quantize_cuda, q4_lanes,
-                                          quantize_rows_cuda)
+                                          q8_lanes, quantize_rows_cuda)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -265,6 +265,49 @@ def test_q4_kernel_work_split_matches_plain(W, block):
 def test_q4_kernel_refuses_row_shapes_it_does_not_take(W, block):
     with pytest.raises(ValueError, match="q4 kernel"):
         q4_lanes(W, block)
+
+
+def _gq8_lanes_emulated(rows: torch.Tensor, W: int, block: int):
+    """The q8 kernel's work split in plain torch: thread t of a row owns
+    elements [16t, 16t + 16), its 16 output bytes; the absmax reduces over
+    the ``q8_lanes`` neighbouring threads, whose first writes the scale."""
+    G = q8_lanes(W, block)
+    C = rows.shape[0]
+    x = rows.reshape(C, -1, 16)
+    m = x.abs().amax(-1)                                    # per thread
+    m = m.reshape(C, -1, G).amax(-1).repeat_interleave(G, dim=1)
+    recip = torch.full((), 1.0 / 127.0, dtype=torch.float32)
+    s = torch.clamp_min(m * recip, 1e-12)
+    q = torch.clamp(torch.round(x / s[..., None]), -127, 127).to(
+        torch.int8).reshape(C, W)
+    seg0 = torch.arange(0, W // 16, G)                      # group leaders
+    scales = torch.empty(C, W // block)
+    scales[:, 16 * seg0 // block] = s[:, seg0]
+    return q, scales
+
+
+@pytest.mark.parametrize("W,block", [(CW, 256), (1024, 256), (768, 256),
+                                     (64, 64), (16, 16), (512, 512)])
+def test_q8_kernel_work_split_matches_plain(W, block):
+    """The q8 gather kernel's lanes, segments and scale writes, emulated in
+    torch, give the plain version's bytes and scales exactly (random rows,
+    and exact .5 ties with every sub-block's absmax at 127 and 254)."""
+    rng = np.random.default_rng(W + block)
+    ties = _ties(False, W).reshape(2, W)
+    ties[:, ::block] = ties[:, :1]
+    rows = torch.from_numpy(np.concatenate([
+        rng.standard_normal((3, W)).astype(np.float32), ties]))
+    q, s = _gq8_lanes_emulated(rows, W, block)
+    q2, s2 = ref.gather_quantize_ref(rows, torch.arange(5), block)
+    assert torch.equal(q, q2)
+    assert torch.equal(s.view(torch.int32), s2.view(torch.int32))
+
+
+@pytest.mark.parametrize("W,block", [(16, 8), (40, 16), (96, 96),
+                                     (2048, 1024), (768, 48), (64, 128)])
+def test_q8_kernel_refuses_row_shapes_it_does_not_take(W, block):
+    with pytest.raises(ValueError, match="the q8 kernel"):
+        q8_lanes(W, block)
 
 
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "float16"])
@@ -662,6 +705,14 @@ def test_kernels_match_plain_versions_on_card():
         q, s = kern(x, idx, CW)
         q2, s2 = plain(ops._padded_float_blocks(x, CW), idx)
         assert torch.equal(q, q2) and torch.equal(s, s2)
+    # q8 at chunk_words 64 (4 lanes a sub-block): the last 67 rows, the
+    # last one partial, so the second CTA's first warp has idle lanes that
+    # join the shuffles
+    g64 = -(-x.numel() // 64)
+    idx = torch.arange(g64 - 67, g64, dtype=torch.int32, device=dev)
+    q, s = ops.gather_quantize_blocks(x, idx, 64)
+    q2, s2 = ref.gather_quantize_ref(ops._padded_float_blocks(x, 64), idx, 64)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
     prev = d.clone()
     prev[::2, 1] ^= 1
     assert torch.equal(ops.changed_chunks(d, prev),
