@@ -23,7 +23,8 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
      and scales byte for byte;
    - the stand-alone changed mask on the TrainState's digests against a
      prev that differs in a seeded subset of rows (in one word only for
-     some), bit for bit, and its per-launch floor (one call on 8 rows);
+     some), bit for bit, its time on an 8-row call and the card's launch
+     floor (an empty kernel, ``torch.cuda._sleep(0)``, timed alike);
    - quantize_blocks / dequantize_blocks on the largest TrainState leaf
      and edge cases (odd lengths in f32/bf16/f16, all-zero rows, exact .5
      ties, +-absmax rows): q, scales and values bit for bit;
@@ -41,28 +42,54 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    give the same loss;
 4. main path A: ``repro_torch.launch.train.main`` at the full
    florbench-100m width (batch 8, seq 512, 2 epochs x 3 steps, every epoch
-   checkpointed), then a restore of the last checkpoint that must equal the
-   live state bit for bit;
-5. replay R1: ``flor.Session(mode="replay")`` over path A's run with no
+   checkpointed) into the shared store ``build/chip_smoke/store`` as run
+   ``A``, then a restore of ``A::train@1.0`` that must equal the live state
+   bit for bit;
+5. replay R2: ``python -m repro_torch.launch.replay --probe train
+   --nworkers 2 --check`` over path A's run on the card (the run dir's
+   ``flor.run.json`` leads it to the shared store): two worker processes
+   share the card, and the deferred check must pass at its own rtol 1e-4
+   with one hindsight row per step;
+6. replay R1: ``flor.Session(mode="replay")`` over path A's run with no
    probed block: every epoch restored onto the card (seconds and GB/s per
    restore), an outer probe logging the embedding norm, and the final
    state equal to the recorded one bit for bit; its kernel launches are
    counted as a path's (the restore path runs none);
-6. replay R2: ``python -m repro_torch.launch.replay --probe train
-   --nworkers 2 --check`` over path A's run on the card: two worker
-   processes share the card, and the deferred check must pass at its own
-   rtol 1e-4 with one hindsight row per step;
-7. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps)
-   with ``RecordSpec(ckpt_error_bounds={"mu": 1e-2, "nu": 1e-3},
-   ckpt_overlap=True)``; ``mu``/``nu`` restore within their bounds, every
-   other leaf bit for bit. At these bounds the selector stores every
+7. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps:
+   a full checkpoint, then a delta that inherits the full one's quantized
+   chunks) with ``RecordSpec(ckpt_error_bounds={"mu": 1e-2, "nu": 1e-3},
+   ckpt_overlap=True)``; the restore of the delta through that lossy chain
+   holds ``mu``/``nu`` within their bounds, every other leaf bit for bit. At these bounds the selector stores every
    moment chunk as q4, so the q8 kernel does not run here;
 8. main path C: the same Session with tight bounds
    (``TIGHT_BOUNDS``, 1 epoch x 3 steps), at which the selector splits
    the moment chunks between q4, q8 and raw, checked as in B;
-9. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
-   paths A, R1, B and C; for the four ``ops`` kernels, the launches of
-   their own phase), the card line, and last the JSON line
+9. path W: the launcher derives run ``W`` from ``A`` (``--parent-run A``,
+   1 epoch x 3 steps): the warm start must seed from ``A::train@1.0``, the
+   first checkpoint must be a delta on it (its transferred bytes and
+   changed chunks printed); the warm-start restore's seconds and GB/s are
+   printed;
+10. path W2: a ``flor.Session`` derived from ``A`` warm-starts onto the card
+   (the fingerprint kernel must launch once per leaf), changes one leaf
+   (``params.ln_f``) and checkpoints: a delta on ``A::train@1.0`` moving no
+   more than that leaf's chunk and under 5% of the logical bytes, restored
+   bit for bit; then digests seeded on the CPU from A's tip (a warm start
+   without ``like``) must move to the card at the first compare: the fused
+   kernel on every leaf of ``params`` plus ``step`` and ``rng``, and only
+   ``ln_f``'s chunk flagged;
+11. replay R3: ``flor.Session(mode="replay")`` over run W: the warm start
+   restores through A's chunks from the key W persisted, the epoch from
+   W's checkpoint, and the final state must equal W's live state bit for
+   bit (the restore check of path W);
+12. path Q: over the shared store, ``flor.log_records`` from the sqlite
+   index must equal the file scan row for row (R1's probe rows included),
+   ``flor.pivot(..., "loss")`` must hold A's two epochs and W's one,
+   ``lineage="W"`` must hold A's and W's rows only, and ``python -m
+   repro_torch.launch.runs list|show|diff|logs|pivot`` must exit 0 (their
+   output printed); query walls printed;
+13. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
+   paths A, R1, B, C, W, W2 and R3; for the four ``ops`` kernels, the
+   launches of their own phase), the card line, and last the JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line is printed. The run
@@ -85,6 +112,9 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM bf16 / f16 tensor cores, dense
 SEED = 0
+# paths A, W, W2 (and the replays of A and W) share one store: A is the
+# parent run, W and W2 derive from its final checkpoint
+STORE = os.path.join(WORK, "store")
 # path A: 2 epochs (its third went to make room for the replay phases)
 BATCH, SEQ, EPOCHS, STEPS = 8, 512, 2, 3
 # path B takes one full and one delta checkpoint, path C one full; each
@@ -94,6 +124,7 @@ B_BOUNDS = {"mu": 1e-2, "nu": 1e-3}
 # selector bands per chunk: q4 if absmax <= 13.5 atol, q8 if <= 126 atol,
 # else raw; these put the measured moment amplitudes across all three
 TIGHT_BOUNDS = {"mu": 1e-5, "nu": 1e-8}
+A_TIP = f"A::train@{EPOCHS - 1}.0"
 
 
 def fail(msg: str):
@@ -465,14 +496,19 @@ def changed_mask_phase(torch, dev, gen, hbm_bps, digests) -> dict:
                    [lambda a=a, p=p: ref.changed_mask_ref(a, p)
                     .to(torch.int32) for a, p in zip(digests, prevs)],
                    2 * G * 8 + G * 4, 2 * G, 0.0)
-    # the per-launch floor: one call on an 8-row digest pair, timed alike
+    # the pass is one launch per leaf: beside it, one call on an 8-row
+    # digest pair and the card's launch floor, an empty kernel (a zero-cycle
+    # spin) timed alike, which owes nothing to this kernel's code
     d8, p8 = d[:8].contiguous(), prev[:8].contiguous()
-    floor = time_calls(torch, [lambda: ops.changed_chunks(d8, p8)])["ms"]
-    say(f"kernel changed_mask: one launch on 8 digest rows {floor:.5f} ms on "
-        f"the card (profiler); {len(digests)} launches x that floor = "
+    small = time_calls(torch, [lambda: ops.changed_chunks(d8, p8)])["ms"]
+    floor = time_calls(torch, [lambda: torch.cuda._sleep(0)])["ms"]
+    say(f"kernel changed_mask: one launch on 8 digest rows {small:.5f} ms, "
+        f"an empty kernel {floor:.5f} ms on the card (profiler); "
+        f"{len(digests)} launches x the empty kernel = "
         f"{len(digests) * floor:.4f} ms beside a byte bound of "
         f"{r['bound_ms']:.5f} ms for the pass")
-    return dict(r, launches=launches, launch_floor_ms=floor)
+    return dict(r, launches=launches, small_call_ms=small,
+                launch_floor_ms=floor)
 
 
 def quantize_cases(torch, gen, dev, state):
@@ -778,48 +814,63 @@ def host_line(tag: str, stats: list):
         f"compressed and written; entropy stage {ent:.2f} s)")
 
 
+def launch_train(dev, run: str, epochs: int, *extra, smoke=False) -> dict:
+    """``repro_torch.launch.train.main`` at the full width into the shared
+    store; returns its result dict."""
+    from repro_torch.launch import train as launcher
+
+    return launcher.main(["--arch", "florbench-100m", "--device", str(dev),
+                          *(["--smoke"] if smoke else []),
+                          "--batch", str(BATCH), "--seq", str(SEQ),
+                          "--epochs", str(epochs),
+                          "--steps-per-epoch", str(STEPS), "--no-adaptive",
+                          "--seed", str(SEED), "--run-dir", run,
+                          "--store-root", STORE, *extra])
+
+
 def main_path_a(torch, ops, dev, smoke=False):
     from repro_torch.checkpoint import CheckpointStore
-    from repro_torch.launch import train as launcher
 
     run = os.path.join(WORK, "path_a")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = launcher.main(["--arch", "florbench-100m", "--device", str(dev),
-                         *(["--smoke"] if smoke else []),
-                         "--batch", str(BATCH), "--seq", str(SEQ),
-                         "--epochs", str(EPOCHS),
-                         "--steps-per-epoch", str(STEPS), "--no-adaptive",
-                         "--seed", str(SEED), "--run-dir", run])
+    out = launch_train(dev, run, EPOCHS, "--run-id", "A", smoke=smoke)
     sync(torch, dev)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     state = out["state"]
     if int(state.step) != EPOCHS * STEPS:
         fail(f"path A state.step {int(state.step)} != {EPOCHS * STEPS}")
-    store = CheckpointStore(os.path.join(run, "store"))
-    keys = store.list_keys()
+    store = CheckpointStore(STORE)
+    keys = store.list_keys(run="A")
     if len(keys) != EPOCHS:
         fail(f"path A wrote checkpoints {keys}, expected {EPOCHS}")
-    restored = store.get_tree(f"train@{EPOCHS - 1}.0", like={"state": state})
+    restored = store.get_tree(A_TIP, like={"state": state})
     check_restore(torch, restored, {"state": state}, {})
     width = state.params["embed"]["table"].shape[1]
     say(f"main path A: launcher main() {width}-wide florbench-100m, "
-        f"{EPOCHS}x"
-        f"{STEPS} steps in {wall:.2f} s; {len(keys)} checkpoints; restore "
-        f"of train@{EPOCHS - 1}.0 bit-identical on all 32 leaves")
+        f"{EPOCHS}x{STEPS} steps in {wall:.2f} s into the shared store as "
+        f"run A; {len(keys)} checkpoints; restore of {A_TIP} "
+        f"bit-identical on all 32 leaves")
     host_line("path A", out["ckpt_stats"])
     return counts, state
 
 
 # --------------------------------------------------------------- replay --
+def restore_line(samples: list) -> str:
+    return "; ".join(f"{x['key']} {x['restore_s']:.2f} s "
+                     f"({x['bytes'] / x['restore_s'] / 1e9:.3f} GB/s, "
+                     f"{x['hops']} hops)" for x in samples)
+
+
 def replay_r1(torch, dev, cfg, recorded) -> dict:
     """Hindsight replay of path A's run through ``flor.Session(mode=
-    "replay")`` with no probed block: every epoch restores its Loop End
-    Checkpoint onto the card; an outer probe logs the embedding norm per
-    epoch. The final state must equal the recorded final state bit for
-    bit. Returns the kernel launches of the replay (the restore path runs
-    no kernel)."""
+    "replay")`` with no probed block, reconnecting to the shared store
+    through the run dir's ``flor.run.json``: every epoch restores its Loop
+    End Checkpoint onto the card; an outer probe logs the embedding norm
+    per epoch (rows that path Q reads back). The final state must equal the
+    recorded final state bit for bit. Returns the kernel launches of the
+    replay (the restore path runs no kernel)."""
     import repro_torch.flor as flor
     from repro_torch.kernels import ops
     from repro_torch.logging import read_stream
@@ -854,20 +905,19 @@ def replay_r1(torch, dev, cfg, recorded) -> dict:
     norms = [r["value"] for r in rows]
     if len(norms) != EPOCHS or not all(v == v and v > 0 for v in norms):
         fail(f"R1 outer probe logged {norms}")
-    per = [f"{x['key']} {x['restore_s']:.2f} s "
-           f"({x['bytes'] / x['restore_s'] / 1e9:.3f} GB/s, "
-           f"{x['hops']} hops)" for x in samples]
     say(f"replay R1: flor.Session(mode='replay') over path A, {EPOCHS} "
         f"epochs restored on the card in {wall:.2f} s; per restore: "
-        f"{'; '.join(per)}; embed_norm per epoch {norms}; final state "
-        f"bit-identical to the recorded one on all 32 leaves")
+        f"{restore_line(samples)}; embed_norm per epoch {norms}; final "
+        f"state bit-identical to the recorded one on all 32 leaves")
     return counts
 
 
 def replay_r2(torch, dev, smoke=False):
     """The planned replay launcher over path A's run on the card: probe
     ``train``, two worker processes sharing the card (one restores its init
-    checkpoint), merge, and the deferred check at its own rtol 1e-4."""
+    checkpoint), merge, and the deferred check at its own rtol 1e-4. It
+    runs before R1, whose ``replay_p0`` stream then replaces its worker
+    0's."""
     run = os.path.join(WORK, "path_a")
     cmd = [sys.executable, "-m", "repro_torch.launch.replay",
            "--run-dir", run, "--probe", "train", "--nworkers", "2",
@@ -967,9 +1017,270 @@ def session_path(torch, ops, dev, cfg, tag: str, bounds: dict, epochs: int):
     return counts
 
 
+# ------------------------------------------------------------ lineage --
+def path_w(torch, ops, dev, smoke=False):
+    """The record launcher derives run W from run A (``--parent-run A``):
+    the warm start restores A's tip onto the card and seeds the delta
+    pipeline there, so W's first checkpoint is a delta against A's tip
+    (three full training steps later nearly every chunk has changed, so
+    its transfer is near the logical size: a fact, not a gate). The
+    restore of W's checkpoint is R3's: it must equal W's live state."""
+    run = os.path.join(WORK, "path_w")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launch_train(dev, run, 1, "--run-id", "W", "--parent-run", "A",
+                       smoke=smoke)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    ws = out["warmstart"].get("train") or {}
+    if not ws.get("seeded") or ws.get("parent_key") != A_TIP:
+        fail(f"path W warm start {ws}")
+    first = out["ckpt_stats"][0]
+    if first["kind"] != "delta" or first["parent"] != A_TIP:
+        fail(f"path W first checkpoint is {first['kind']} on "
+             f"{first['parent']}, expected a delta on {A_TIP}")
+    say(f"path W: launcher --parent-run A, 1x{STEPS} steps in {wall:.2f} s; "
+        f"warm start from {ws['parent_key']}: {ws['leaves']} leaves "
+        f"seeded, restore {ws['restore_s']:.2f} s "
+        f"({ws['bytes'] / ws['restore_s'] / 1e9:.3f} GB/s); first "
+        f"checkpoint {first['kind']} on {first['parent']}: transferred "
+        f"{first['transferred_bytes']} of {first['logical_bytes']} bytes "
+        f"({first['transferred_bytes'] / first['logical_bytes']:.4f}), "
+        f"{first['changed_chunks']} of {first['total_chunks']} chunks "
+        f"changed (its restore is checked in R3)")
+    host_line("path W", out["ckpt_stats"])
+    return counts, out["state"]
+
+
+def path_w2(torch, ops, dev, cfg):
+    """A ``flor.Session`` derived from run A warm-starts onto the card:
+    the seeding fingerprint must launch once per leaf there. Then ONE leaf
+    changes (``params.ln_f``) and the first checkpoint must be a delta on
+    A's tip that moves that leaf's chunk and nothing else — what a seed on
+    the CPU, or over the wrong view, would get wrong."""
+    import repro_torch.flor as flor
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.checkpoint.pipeline import PIPELINE_CHUNK_WORDS as CW
+    from repro_torch.train.step import build_train_step
+    from repro_torch.utils.pytree import tree_leaves
+
+    init_state, _ = build_train_step(cfg, device=dev)
+    state = init_state(SEED)
+    ops.reset_launch_counts()
+    lineage = flor.LineageSpec(store_root=STORE, run_id="W2",
+                               parent_run="A")
+    t0 = time.perf_counter()
+    with flor.Session(os.path.join(WORK, "path_w2"), mode="record",
+                      record=flor.RecordSpec(adaptive=False),
+                      lineage=lineage) as sess:
+        ctx = sess.ctx
+        state = sess.warm_start("train", like=state)
+        sync(torch, dev)
+        t_ws = time.perf_counter() - t0
+        seeded = ops.launch_counts().get("fingerprint", 0)
+        n_leaves = len(tree_leaves(state))
+        if seeded != n_leaves:
+            fail(f"W2 warm start launched the fingerprint kernel {seeded} "
+                 f"times for {n_leaves} leaves")
+        base, ln_f = state, state.params["ln_f"]
+        state = state._replace(params={**state.params, "ln_f": ln_f + 1.0})
+        ctx.submit_checkpoint("train", "train@0.0", {"state": state},
+                              meta={})
+        flor.log("ln_f_bumped", 1.0)
+        ctx.pipeline.drain()
+        stat = ctx.pipeline.stats[-1]
+        ws = dict(ctx.warmstart_stats["train"])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    leaf_bytes = ln_f.numel() * ln_f.element_size()
+    cap = -(-ln_f.numel() // CW) * CW * ln_f.element_size()
+    frac = stat["transferred_bytes"] / stat["logical_bytes"]
+    if stat["kind"] != "delta" or stat["parent"] != A_TIP \
+            or not 0 < stat["transferred_bytes"] <= cap or not frac < 0.05:
+        fail(f"W2 first checkpoint: {stat['kind']} on {stat['parent']}, "
+             f"{stat['transferred_bytes']} bytes moved (the changed leaf's "
+             f"chunks hold {cap}), fraction {frac}")
+    restored = CheckpointStore(STORE).get_tree("W2::train@0.0",
+                                               like={"state": state})
+    check_restore(torch, restored, {"state": state}, {})
+    say(f"path W2: flor.Session warm start from {ws['parent_key']} in "
+        f"{t_ws:.2f} s (restore {ws['restore_s']:.2f} s, "
+        f"{ws['bytes'] / ws['restore_s'] / 1e9:.3f} GB/s), fingerprint "
+        f"kernel launched {seeded} times for {n_leaves} leaves; params.ln_f "
+        f"({ln_f.numel()} {str(ln_f.dtype).removeprefix('torch.')}, "
+        f"{leaf_bytes} bytes) changed: first checkpoint {stat['kind']} on "
+        f"{stat['parent']}, transferred {stat['transferred_bytes']} of "
+        f"{stat['logical_bytes']} bytes ({frac:.3e}), "
+        f"{stat['changed_chunks']} of {stat['total_chunks']} chunks; "
+        f"restore of W2::train@0.0 bit-identical; {wall:.2f} s in all")
+    digest_move_check(torch, ops, base, state)
+    return counts
+
+
+def digest_move_check(torch, ops, base, bumped):
+    """Digests seeded on the CPU move to the card at the first compare.
+    A warm start without ``like`` restores flat CPU tensors and seeds from
+    them; the first checkpoint then compares the card's leaves. A tracker
+    is seeded so, through the pipeline's word view, from CPU copies of
+    ``base`` (A's tip) for the ``params`` leaves, ``step`` and ``rng``, and
+    dispatched on the card's leaves of ``bumped`` (``params.ln_f`` + 1):
+    every leaf must take the fused kernel (no first sight) and only
+    ``ln_f``'s chunk may be flagged, which holds only if the CPU's plain
+    fingerprint and the card's kernel agree bit for bit. Its launches are
+    not a path's."""
+    from repro_torch.checkpoint.delta import DeltaTracker
+    from repro_torch.checkpoint.pipeline import PIPELINE_CHUNK_WORDS as CW
+    from repro_torch.checkpoint.pipeline import _fp_view
+    from repro_torch.utils.pytree import tree_leaves_with_paths
+
+    def leaves(s):
+        return [(p, x) for p, x in tree_leaves_with_paths({"state": s})
+                if ".mu" not in p and ".nu" not in p]
+
+    pairs = [(p, b, x) for (p, b), (_, x) in zip(leaves(base),
+                                                  leaves(bumped))]
+    tracker = DeltaTracker(CW)
+    t0 = time.perf_counter()
+    host = [(p, b.cpu()) for p, b, _ in pairs]
+    nbytes = sum(b.numel() * b.element_size() for _, b in host)
+    for p, b in host:
+        tracker.seed(p, _fp_view(b))
+    t_seed = time.perf_counter() - t0
+    if any(tracker._digests[p].device.type != "cpu" for p, _ in host):
+        fail("digest move: a CPU seed left its digest off the CPU")
+    before = ops.launch_counts().get("fingerprint_changed", 0)
+    flagged = {}
+    for p, _, x in pairs:
+        h = tracker.delta_dispatch(p, _fp_view(x))
+        if h["first"] or h["mask"] is None \
+                or h["digest"].device != x.device:
+            fail(f"digest move: {p} was treated as first sight")
+        n = int(h["mask"].sum())
+        if n:
+            flagged[p] = n
+    launched = ops.launch_counts()["fingerprint_changed"] - before
+    ln_f = [p for p, _, x in pairs if x is bumped.params["ln_f"]]
+    if launched != len(pairs) or flagged != {ln_f[0]: 1}:
+        fail(f"digest move: {launched} fused launches for {len(pairs)} "
+             f"leaves, chunks flagged {flagged}, expected {{{ln_f[0]}: 1}}")
+    say(f"digest move: {len(pairs)} leaves ({nbytes} bytes: params, step, "
+        f"rng) seeded on the CPU in {t_seed:.2f} s "
+        f"({nbytes / t_seed / 1e9:.3f} GB/s, copy off the card included), "
+        f"compared on the card: {launched} fused launches, no first sight, "
+        f"chunks flagged {flagged}")
+
+
+def replay_r3(torch, dev, cfg, recorded) -> dict:
+    """Hindsight replay of run W with no probed block: the warm start
+    restores A's tip from the key W's ``flor.run.json`` persisted (through
+    A's chunks), then the epoch restores W's own checkpoint
+    ``W::train@0.0``. The final state must equal W's live state at the end
+    of path W bit for bit."""
+    import repro_torch.flor as flor
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import build_train_step
+
+    init_state, _ = build_train_step(cfg, device=dev)
+    state = init_state(SEED)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with flor.Session(os.path.join(WORK, "path_w"), mode="replay",
+                      replay=flor.ReplaySpec(probed=set())) as sess:
+        state = sess.warm_start("train", like=state)
+        ws = dict(sess.ctx.warmstart_stats["train"])
+        steps = sess.arg("steps_per_epoch", STEPS)
+        with sess.checkpointing(state=state) as ckpt:
+            for _ in sess.loop("epochs", range(sess.arg("epochs", 1))):
+                for _ in sess.loop("train", range(steps)):
+                    fail("R3 re-executed a training step")
+        samples = list(sess.ctx.restore_stats)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if ws["parent_key"] != A_TIP or len(samples) != 1:
+        fail(f"R3 warm start from {ws['parent_key']}, {len(samples)} "
+             f"epoch restores")
+    check_restore(torch, {"state": ckpt.state}, {"state": recorded}, {})
+    say(f"replay R3: flor.Session(mode='replay') over run W in {wall:.2f} "
+        f"s; warm start {ws['parent_key']} {ws['restore_s']:.2f} s "
+        f"({ws['bytes'] / ws['restore_s'] / 1e9:.3f} GB/s, {ws['hops']} "
+        f"hops); per epoch restore: W::{restore_line(samples)}; final "
+        f"state bit-identical to W's live state on all 32 leaves")
+    return counts
+
+
+def path_q(torch):
+    """The lineage query surface over the shared store after A, R2, R1, W,
+    W2 and R3: the sqlite index and the file scan give the same rows, the
+    pivot and the lineage filter see the runs they should, and the ``runs``
+    CLI answers."""
+    import repro_torch.flor as flor
+
+    t0 = time.perf_counter()
+    by_index = flor.log_records(STORE, engine="index")
+    t_index = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_files = flor.log_records(STORE, engine="files")
+    t_files = time.perf_counter() - t0
+    if by_index != by_files:
+        fail(f"Q: index rows ({len(by_index)}) differ from file-scan rows "
+             f"({len(by_files)})")
+    norms = [r for r in by_index if r["run_id"] == "A"
+             and r["source"] == "replay_p0" and r["key"] == "embed_norm"]
+    if len(norms) != EPOCHS:
+        fail(f"Q: {len(norms)} R1 embed_norm rows, expected {EPOCHS}")
+    t0 = time.perf_counter()
+    piv = flor.pivot(STORE, "loss")
+    t_pivot = time.perf_counter() - t0
+    cells = [(r["run_id"], r["epoch"]) for r in piv]
+    want = [("A", e) for e in range(EPOCHS)] + [("W", 0)]
+    if cells != want or not all(isinstance(r["loss"], float)
+                                and r["loss"] == r["loss"] for r in piv):
+        fail(f"Q: pivot loss cells {cells}, expected {want}: {piv}")
+    t0 = time.perf_counter()
+    lin = {r["run_id"] for r in flor.log_records(STORE, lineage="W")}
+    t_lineage = time.perf_counter() - t0
+    if lin != {"A", "W"}:
+        fail(f"Q: lineage W rows come from runs {sorted(lin)}")
+    if not any(r["run_id"] == "W2" for r in by_index):
+        fail("Q: run W2 logged no row")
+    # the five CLI processes run side by side: each spends most of its
+    # wall importing torch
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = [(args, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.runs", *args,
+         "--store-root", STORE], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+        for args in (["list"], ["show", "W"], ["diff", "A", "W"], ["logs"],
+                     ["pivot", "loss"])]
+    t_cli = {}
+    for args, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for _, p in procs:
+                p.kill()
+            fail(f"Q: runs {' '.join(args)} did not finish in 300 s")
+        t_cli[args[0]] = time.perf_counter() - t0
+        for line in out.strip().splitlines():
+            say(f"  Q| {line}")
+        if proc.returncode != 0:
+            fail(f"Q: runs {' '.join(args)} exited {proc.returncode}:\n"
+                 f"{err[-3000:]}")
+    say(f"path Q: {len(by_index)} log rows, index == file scan; pivot "
+        f"loss {cells}; lineage W -> runs {sorted(lin)}; walls: "
+        f"log_records index {t_index * 1e3:.1f} ms, files "
+        f"{t_files * 1e3:.1f} ms, pivot {t_pivot * 1e3:.1f} ms, lineage "
+        f"{t_lineage * 1e3:.1f} ms; runs CLI, five processes side by side "
+        f"(done at, process start included) "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in t_cli.items()))
+
+
 # ------------------------------------------------------------------ main --
 # kernel -> (CUDA source, the TPU kernel it replaces, its path); "record"
-# kernels must have launched on paths A-C, "ops" kernels report the
+# kernels must have launched on paths A-C and W-R3, "ops" kernels report the
 # launches of their own phase (kernels/ops.py is their only entry point)
 KERNELS = {
     "fingerprint": ("chunk_delta.cu", "chunk_delta.py:37", "record"),
@@ -1001,15 +1312,15 @@ def kernels_line(results: dict, paths: dict) -> list:
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "pass_ms": r["pass_ms"], "dispatch_us": r["dispatch_us"],
                  "path": path}
-        for extra in ("cases", "routes", "launch_floor_ms"):
+        for extra in ("cases", "routes", "small_call_ms", "launch_floor_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         line.append(entry)
     return line
 
 
-# kernels new in this slice: their ptxas -v report is printed after the build
-NEW_KERNELS = ("gq8_kernel",)
+# kernels of this slice's path: their ptxas -v report is printed after the build
+NEW_KERNELS = ("fp_kernel",)
 
 
 def ptxas_report(build_log: dict, names) -> list:
@@ -1083,15 +1394,34 @@ def main():
                         for k, r in results.items()}))
         say("--kernels-only: stopping after the kernel phases")
         return
+    def lap(tag):
+        say(f"phase {tag} done at {time.perf_counter() - t_start:.1f} s")
+
+    lap("kernels")
     model_check(torch, dev)
     counts_a, state_a = main_path_a(torch, ops, dev)
+    lap("A")
+    replay_r2(torch, dev)
+    lap("R2")
     counts_r1 = replay_r1(torch, dev, cfg, state_a)
     del state_a
-    replay_r2(torch, dev)
+    lap("R1")
     counts_b = session_path(torch, ops, dev, cfg, "b", B_BOUNDS, B_EPOCHS)
+    lap("B")
     counts_c = session_path(torch, ops, dev, cfg, "c", TIGHT_BOUNDS,
                             C_EPOCHS)
-    paths = {"A": counts_a, "R1": counts_r1, "B": counts_b, "C": counts_c}
+    lap("C")
+    counts_w, state_w = path_w(torch, ops, dev)
+    lap("W")
+    counts_w2 = path_w2(torch, ops, dev, cfg)
+    lap("W2")
+    counts_r3 = replay_r3(torch, dev, cfg, state_w)
+    del state_w
+    lap("R3")
+    path_q(torch)
+    lap("Q")
+    paths = {"A": counts_a, "R1": counts_r1, "B": counts_b, "C": counts_c,
+             "W": counts_w, "W2": counts_w2, "R3": counts_r3}
     for tag, counts in paths.items():
         say(f"launches path {tag}: {json.dumps(counts)}")
     say(json.dumps({"kernels": kernels_line(results, paths)}))

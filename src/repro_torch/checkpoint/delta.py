@@ -98,10 +98,13 @@ class DeltaTracker:
         prev = self._digests.get(path)
         if prev is not None \
                 and int(prev.shape[0]) == _grid_rows(nbytes, bpw,
-                                                     self.chunk_words) \
-                and prev.device == leaf.device:
-            digest, mask = fingerprint_and_changed(leaf, prev,
-                                                   self.chunk_words)
+                                                     self.chunk_words):
+            # a digest seeded on another device (a warm start that restored
+            # to the CPU) moves to the leaf's: it is [G, 2] int32, a few KiB,
+            # and every fingerprint path computes the same bits, so the
+            # fused kernel still masks only truly changed chunks
+            digest, mask = fingerprint_and_changed(
+                leaf, prev.to(leaf.device), self.chunk_words)
             first = False
         else:
             digest = fingerprint_leaf(leaf, self.chunk_words)
@@ -190,6 +193,14 @@ class DeltaTracker:
         fingerprint read."""
         return self.finalize(self.delta_dispatch(path, leaf, enc=enc,
                                                  error_bound=error_bound))
+
+    def seed(self, path: str, leaf: torch.Tensor):
+        """Rehydrate one leaf's digests from restored bytes (cross-run warm
+        start): exactly the fingerprint a submit would compute, on the
+        leaf's device, so the FIRST delta of a derived run masks only the
+        chunks that changed since the ancestor run's final checkpoint. No
+        mask, no gather — one fingerprint read."""
+        self._digests[path] = fingerprint_leaf(leaf, self.chunk_words)
 
     def forget(self, path: str):
         """Drop one leaf's digests — the next delta() transfers everything

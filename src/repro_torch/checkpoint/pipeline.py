@@ -61,9 +61,11 @@ Slots declared via ``error_bounds`` pick, per changed chunk, the cheapest
 encoding whose GUARANTEED bound (delta.Q4_ATOL_DIV / Q8_ATOL_DIV margins)
 satisfies the slot's atol.
 
-Mesh-aware (``mesh=``) and multi-process (``dist=``) record, and cross-run
-warm start, are later slices of this package (ROADMAP queue 1, items 8, 12
-and 13); their arguments raise NotImplementedError here.
+Cross-run warm start (``warm_start``) seeds a scope from an ancestor run's
+final resolved manifest, so a derived run's first checkpoint is a delta
+against it. Mesh-aware (``mesh=``) and multi-process (``dist=``) record are
+later slices of this package (ROADMAP queue 1, items 12 and 13); their
+arguments raise NotImplementedError here.
 
 A delta manifest inherits every unlisted chunk hash from its parent chain
 (`CheckpointStore.resolve_manifest`). Chains are bounded: a FULL manifest is
@@ -488,6 +490,71 @@ class CheckpointPipeline:
         self._stats.append(stat)
         if self._on_mat:
             self._on_mat(stat)
+
+    # ---------------------------------------------------------- warm start --
+    def warm_start(self, scope: str, parent_key: str, manifest: dict,
+                   arrays_by_path: dict) -> dict:
+        """Seed one scope's record state from an ancestor run's final
+        RESOLVED manifest, so the next submit() is a delta against it.
+
+        `parent_key` must be the key the shared store resolves the manifest
+        under — QUALIFIED (``"run::key"``) when it lives in another run's
+        namespace. `manifest` is the ``resolve_manifest`` output (complete
+        chunk lists per leaf); `arrays_by_path` the restored tensors keyed
+        by leaf path. Seeds:
+
+        * structure signatures — so the first submit is not forced full;
+        * writer-side chunk-hash lists — so unchanged chunks inherit the
+          ancestor's hashes instead of tripping the consistency check;
+        * device digests — the fingerprint over the restored bytes, on each
+          tensor's own device (the CUDA kernel for tensors on the card), so
+          only truly-changed chunks transfer.
+
+        Call before the scope's first submit (its writer-side state is not
+        yet shared with the writer thread). Raises ValueError when the
+        manifest cannot seed this pipeline (v4, v1, unresolved holes,
+        different `chunk_words`) — the caller falls back to a cold start."""
+        if manifest.get("kind") == "sharded":
+            raise ValueError(
+                f"warm start from sharded (v4) manifest {manifest['key']!r} "
+                "is not supported yet — the derived run records cold")
+        if manifest.get("version", 1) < 2:
+            raise ValueError(
+                f"warm start needs a v2 pipeline manifest; {manifest['key']!r}"
+                " is v1 (put_tree) and uses incompatible chunking")
+        if int(manifest.get("chunk_words") or 0) != self.chunk_words:
+            raise ValueError(
+                f"chunk_words mismatch: manifest {manifest.get('chunk_words')}"
+                f" vs pipeline {self.chunk_words} — digests would never match")
+        sig: dict[str, tuple] = {}
+        hashes: dict[str, list] = {}
+        encs: dict[str, list] = {}
+        seeded_bytes = 0
+        for leaf in manifest["leaves"]:
+            path = leaf["path"]
+            chunks = leaf.get("chunks")
+            if chunks is None or any(h is None for h in chunks):
+                raise ValueError(
+                    f"manifest {manifest['key']!r} is not resolved at leaf "
+                    f"{path!r} — pass resolve_manifest() output")
+            if path not in arrays_by_path:
+                raise ValueError(f"restored tree is missing leaf {path!r}")
+            sig[path] = (leaf["dtype"], tuple(leaf["shape"]),
+                         leaf.get("leaf_enc", "raw"))
+            hashes[path] = list(chunks)
+            encs[path] = list(leaf.get("enc") or ["raw"] * len(chunks))
+            nbytes = int(leaf.get("nbytes", 0))
+            seeded_bytes += nbytes
+            if nbytes > 0:
+                self.tracker.seed(f"{scope}::{path}",
+                                  _fp_view(_as_tensor(arrays_by_path[path])))
+        self._sig[scope] = sig
+        self._hashes[scope] = hashes
+        self._encs[scope] = encs
+        self._last_key[scope] = parent_key
+        self._since_full[scope] = 0
+        return {"scope": scope, "parent": parent_key,
+                "leaves": len(sig), "seeded_bytes": seeded_bytes}
 
     # ----------------------------------------------------------- lifecycle --
     def drain(self):

@@ -9,13 +9,15 @@ epsilon budget that gates checkpoint materialization).
 
 Run lineage: `store_root=` shares one content-addressed store across runs
 (per-run manifest namespaces, global chunk dedup); `parent_run=` declares
-the lineage edge. The binding persists in `<run_dir>/flor.run.json`; run
-records live in the `RunRegistry` beside the store.
+the lineage edge and enables `warm_start` — restore the ancestor's final
+checkpoint onto the live state's device and record this run's first
+checkpoint as a cross-run delta. The binding persists in
+`<run_dir>/flor.run.json` so replay reconnects without arguments; run
+records live in the `RunRegistry` beside the store. Sealed log segments
+feed the sqlite query index (`repro_torch.querydb`) as they seal.
 
-Record and hindsight replay (init/exec phases, planned visit lists, physical
-restore onto the live state's device) are ported; warm start, the query
-index and mesh-sharded / multi-process record or replay are later slices
-(ROADMAP queue 1) and raise NotImplementedError here.
+Mesh-sharded and multi-process record or replay are later slices (ROADMAP
+queue 1, items 12-13) and raise NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -24,13 +26,16 @@ import time
 import warnings
 from typing import Optional
 
+import torch
+
 from repro_torch.checkpoint import (CheckpointPipeline, CheckpointStore,
-                              RunIdCollision, RunRegistry)
+                                    RunIdCollision, RunRegistry)
 from repro_torch.checkpoint.lineage import (generate_run_id, read_run_meta,
-                                      write_run_meta)
+                                            write_run_meta)
 from repro_torch.core.adaptive import AdaptiveController
 from repro_torch.logging import (DEFAULT_QUEUE_DEPTH, DEFAULT_SPILL_BYTES,
                                  FingerprintLog, jsonable)
+from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 
 # Contexts form a STACK: `flor.Session` pushes on enter and pops on exit, so
 # nested and sequential sessions compose without a single mutable global.
@@ -174,6 +179,7 @@ class FlorContext:
         self.store = CheckpointStore(self.store_root, run_id=self.namespace)
         if mode == "record":
             self._snapshot_source()
+        self.warmstart_stats: dict[str, dict] = {}
         if adaptive and mode == "record":
             # a resumed run (or any run sharing this store namespace) already
             # measured the store's throughput: reuse the persisted figure and
@@ -199,21 +205,38 @@ class FlorContext:
             if mode == "record" else None
         # backward-compat handle (benchmarks call ctx.writer.drain())
         self.writer = self.pipeline.writer if self.pipeline else None
-        # ``log_index`` (the incremental sqlite query index) is accepted for
-        # spec compatibility; the index arrives with the query slice, so
-        # this run's logs are file-scan-served.
+        stream = "record" if mode == "record" else f"replay_p{pid}"
+        # incremental query-index maintenance (repro_torch.querydb): sealed
+        # log segments are ingested into <store_root>/index/flor.db the
+        # moment they seal, off the step path, drawing from the same epsilon
+        # budget as the logging work itself. Best-effort by design — any
+        # failure just leaves this run file-scan-served.
+        self.log_indexer = None
+        if log_index and self.run_id:
+            try:
+                from repro_torch.querydb import SegmentIndexer
+                self.log_indexer = SegmentIndexer(
+                    self.store_root, self.run_id, stream,
+                    registry=self.registry,
+                    on_overhead=self.controller.observe_logging)
+                if mode == "replay":
+                    # this attempt rotates its stream below (fresh=True):
+                    # rows a previous attempt indexed are no longer truth
+                    self.log_indexer.invalidate()
+            except Exception:
+                self.log_indexer = None
         # record resumes (seq continues from the tail); each replay attempt
         # rotates its per-pid log so stale lines never pollute deferred_check.
         # async_log (default) puts serialization + I/O on a background stage
         # writing crash-safe segments; the observed logging overhead feeds
         # the controller so it shares the epsilon budget with checkpoints.
-        stream = "record" if mode == "record" else f"replay_p{pid}"
         self.log = FingerprintLog(
             os.path.join(run_dir, "logs", f"{stream}.jsonl"),
             fresh=(mode == "replay"), async_log=async_log,
             queue_depth=log_queue_depth, spill_bytes=log_spill_bytes,
             store=self.store, stream=stream,
-            on_overhead=self.controller.observe_logging)
+            on_overhead=self.controller.observe_logging,
+            on_seal=(self.log_indexer.on_seal if self.log_indexer else None))
         self._block_keys_meta: dict[str, dict] = {}
         # ---- session-surface state (flor.loop / flor.checkpointing /
         # flor.arg): nesting depth of active flor.loop iterators (0 = the
@@ -355,11 +378,86 @@ class FlorContext:
 
     # ------------------------------------------------------- warm start --
     def warm_start(self, block_id: str = "train", like=None):
-        """Cross-run warm start (restore the parent run's final checkpoint
-        and seed the delta pipeline with it) is a later slice of this
-        package (ROADMAP queue 1, item 8)."""
-        raise NotImplementedError(
-            "warm_start is not ported yet (ROADMAP queue 1, item 8)")
+        """Restore the PARENT RUN's final checkpoint for `block_id` from the
+        shared store and (in record mode) seed the delta pipeline with it —
+        the derived run's first checkpoint is then a delta against its
+        ancestor instead of a cold full recording. Returns the restored
+        state (unflattened into `like` when given, else {path: CPU tensor}).
+
+        Each restored tensor moves to its `like` leaf's device BEFORE the
+        pipeline is seeded, so the seeding fingerprint runs where the
+        checkpoints will (the CUDA kernel for a state on the card). Without
+        `like` the digests are seeded on the CPU and move to the card at the
+        first checkpoint.
+
+        In replay mode this only restores — a replayed derived run starts
+        from the same bytes its record run did, through the parent run's
+        chunks, with no pipeline to seed."""
+        if not self.parent_run:
+            raise RuntimeError(
+                "warm_start needs flor.Session(..., lineage=LineageSpec("
+                "store_root=, parent_run=))")
+        # replay must not depend on the REGISTRY still knowing the parent:
+        # `runs rm A` keeps descendants' chunk closure alive, so a derived
+        # run stays replayable from the key its record run persisted into
+        # its own flor.run.json
+        saved_keys = self._run_meta.get("warm_start_keys") or {}
+        qual = saved_keys.get(block_id) if self.mode == "replay" else None
+        if qual is None:
+            rec = self.registry.get(self.parent_run)
+            if rec is None:
+                raise RuntimeError(
+                    f"parent run {self.parent_run!r} is not registered in "
+                    f"{self.store_root!r}")
+            fk = (rec.get("final_keys") or {}).get(block_id)
+            if fk is None:
+                raise KeyError(
+                    f"parent run {self.parent_run!r} recorded no final "
+                    f"checkpoint for block {block_id!r} (scopes: "
+                    f"{sorted(rec.get('final_keys') or {})})")
+            # a scope that never submitted in the parent inherits ITS
+            # parent's qualified tip — already addressable as-is. "::key"
+            # is the explicit flat namespace (parent recorded without a
+            # shared store): an unqualified key would bind to OUR namespace.
+            qual = fk if "::" in fk \
+                else f"{rec.get('namespace') or ''}::{fk}"
+        if self.mode == "record":
+            saved_keys = dict(saved_keys)
+            saved_keys[block_id] = qual
+            self._run_meta["warm_start_keys"] = saved_keys
+            write_run_meta(self.run_dir, self._run_meta)
+        t0 = time.perf_counter()
+        manifest = self.store.resolve_manifest(qual)
+        flat = self.store.get_tree(qual, manifest=manifest)
+        if like is not None:
+            leaves, treedef = tree_flatten(like)
+            if len(leaves) != len(manifest["leaves"]):
+                raise ValueError(
+                    f"structure mismatch: like has {len(leaves)} leaves, "
+                    f"parent checkpoint {len(manifest['leaves'])}")
+            for lf, lk in zip(manifest["leaves"], leaves):
+                if isinstance(lk, torch.Tensor):
+                    flat[lf["path"]] = flat[lf["path"]].to(lk.device)
+        info = {"block": block_id, "parent_run": self.parent_run,
+                "parent_key": qual, "seeded": False,
+                "restore_s": time.perf_counter() - t0,
+                "bytes": sum(int(lf.get("nbytes") or 0)
+                             for lf in manifest["leaves"]),
+                "hops": int(manifest.get("hops") or 0)}
+        if self.pipeline is not None:
+            try:
+                info.update(self.pipeline.warm_start(block_id, qual,
+                                                     manifest, flat))
+                info["seeded"] = True
+            except ValueError as e:
+                # incompatible ancestor manifest (v1 / other chunk_words):
+                # state still restores, but the first checkpoint records cold
+                info["reason"] = str(e)
+        self.warmstart_stats[block_id] = info
+        if like is None:
+            return flat
+        return tree_unflatten(treedef,
+                              [flat[lf["path"]] for lf in manifest["leaves"]])
 
     # ---------------------------------------------------- hyperparameters --
     def hparam(self, name: str, default=None):
@@ -461,6 +559,12 @@ class FlorContext:
             self.registry.finalize(self.run_id, final_keys=final_keys,
                                    status=status)
             self._registered = False
+        if self.log_indexer is not None:
+            # log closed above (final segment sealed+ingested), registry
+            # finalized: sync the runs mirror + directory signature so the
+            # whole store's listing is index-serviceable. Best-effort.
+            indexer, self.log_indexer = self.log_indexer, None
+            indexer.finish(self.registry)
         if self._block_profile:
             # merge over any previous profile so a resumed run keeps the
             # epochs it recorded before the restart

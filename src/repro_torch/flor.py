@@ -33,8 +33,36 @@ scheduler hands each worker a visit list (``ReplaySpec(segments=...)``;
 ``flor.deferred_check(*flor.run_logs(run_dir))`` diffs replay against
 record. ``flor.sampling_generator`` replays a sampled subset of epochs.
 
-Warm start, the cross-run query surface and mesh / multi-process runs are
-later slices (ROADMAP queue 1) and raise NotImplementedError.
+Run lineage (multi-run shared store): point several runs at one store and
+declare the edge —
+
+    with flor.Session(runB_dir,
+                      lineage=flor.LineageSpec(store_root=STORE,
+                                               parent_run="base",
+                                               run_id="ft1")) as sess:
+        state = sess.warm_start("train", like=state)  # ancestor's final ckpt
+        ...fine-tune...                               # 1st ckpt already a delta
+
+The restored tensors land on the devices of ``like``'s leaves, and the
+pipeline's digests are seeded there, so the first checkpoint moves only the
+chunks that changed since the ancestor's final checkpoint.
+
+Query the accumulated logs of a whole lineage as data:
+
+    flor.log_records(STORE)           # flat rows: run_id, parent_run, epoch,
+                                      #   seq, key, value (+ replay sources)
+    flor.pivot(STORE, "loss")         # one row per (run, epoch), keys as cols
+    flor.reindex(STORE)               # catch the sqlite query index up
+
+Queries are served by the incrementally-maintained sqlite index
+(``<store_root>/index/flor.db``, repro_torch.querydb) whenever its
+watermarks prove it current, and fall back to scanning the log files
+otherwise; the two paths return identical rows. From the shell:
+``python -m repro_torch.launch.runs list|show|gc|rm|diff|logs|pivot|reindex
+--store-root ...``.
+
+Mesh-sharded and multi-process runs are later slices (ROADMAP queue 1,
+items 12-13) and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -43,11 +71,13 @@ from repro_torch.core.context import (  # noqa: F401
 from repro_torch.core.fingerprint import deferred_check, run_logs  # noqa: F401
 from repro_torch.core.generator import sampling_generator  # noqa: F401
 from repro_torch.core.probes import detect_probes  # noqa: F401
-from repro_torch.core.query import merge_replay_logs  # noqa: F401
+from repro_torch.core.query import (log_records,  # noqa: F401
+                                    merge_replay_logs, pivot)
 from repro_torch.core.session import (  # noqa: F401
     CheckpointScope, LineageSpec, RecordSpec, ReplaySpec, Session, arg,
     checkpointing, executed, loop)
 from repro_torch.logging import FingerprintLog, FlorLogValueWarning  # noqa: F401
+from repro_torch.querydb import reindex  # noqa: F401
 from repro_torch.replay import ReplayPlan, build_plan  # noqa: F401
 
 
@@ -60,6 +90,16 @@ def log(key: str, value):
     too are diffed by ``deferred_check``, new keys are hindsight probes."""
     ctx = get_context()
     ctx.log.log(ctx.current_epoch, key, value)
+
+
+def warm_start(block_id: str = "train", like=None):
+    """Restore the parent run's final checkpoint for `block_id` (see
+    ``LineageSpec(store_root=, parent_run=)``) and, when recording, seed
+    the delta pipeline so this run's first checkpoint is a cross-run delta
+    against its ancestor. Returns the restored state — unflattened into
+    `like` (each tensor on its `like` leaf's device) when given, else a
+    flat {path: CPU tensor} dict."""
+    return get_context().warm_start(block_id, like=like)
 
 
 def current_epoch():

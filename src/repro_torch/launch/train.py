@@ -11,8 +11,18 @@ Fault tolerance IS the paper's substrate: on start, if the run dir already
 holds checkpoints, training resumes from the latest epoch checkpoint. Kill
 the process mid-run and relaunch with the same command to see it.
 
-Cross-run warm start (``--parent-run``) and multi-process record are later
-slices of this package (ROADMAP queue 1).
+Run lineage (continuous training): record several runs into one shared
+store and chain them —
+
+    ... train --run-dir /tmp/base --store-root /tmp/store --run-id base
+    ... train --run-dir /tmp/ft1  --store-root /tmp/store --run-id ft1 \
+        --parent-run base          # warm-starts; 1st ckpt is a cross-run delta
+
+The warm start restores the ancestor's final checkpoint onto the card and
+seeds the delta pipeline there. Inspect, query and reclaim with
+``python -m repro_torch.launch.runs list|show|diff|logs|pivot|gc|rm``.
+Multi-process record is a later slice of this package (ROADMAP queue 1,
+item 13).
 """
 from __future__ import annotations
 
@@ -23,8 +33,9 @@ import time
 def main(argv=None):
     """Parse ``argv`` (default: the command line), record the run, and
     return {"state": final TrainState, "run_dir", "store", "ckpt_stats":
-    the pipeline's per-checkpoint stats} for callers that drive the
-    launcher in-process."""
+    the pipeline's per-checkpoint stats, "warmstart": the warm start's
+    stats per block (empty without ``--parent-run``)} for callers that
+    drive the launcher in-process."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="florbench-100m")
     ap.add_argument("--smoke", action="store_true",
@@ -54,6 +65,9 @@ def main(argv=None):
                          "default: private <run-dir>/store")
     ap.add_argument("--run-id", default=None,
                     help="explicit run id in the shared store")
+    ap.add_argument("--parent-run", default=None,
+                    help="ancestor run id: warm-start from its final "
+                         "checkpoint and record cross-run deltas")
     args = ap.parse_args(argv)
 
     import torch
@@ -78,7 +92,7 @@ def main(argv=None):
             print(f"epoch {epoch} loss {float(m['loss']):.4f}", flush=True)
         print(f"vanilla wall {time.time() - t0:.2f}s")
         return {"state": state, "run_dir": args.run_dir, "store": None,
-                "ckpt_stats": []}
+                "ckpt_stats": [], "warmstart": {}}
 
     with flor.Session(
             args.run_dir, mode="record",
@@ -87,8 +101,15 @@ def main(argv=None):
                                    async_log=not args.sync_log,
                                    log_spill_bytes=args.log_spill_bytes),
             lineage=flor.LineageSpec(store_root=args.store_root,
-                                     run_id=args.run_id)) as sess:
+                                     run_id=args.run_id,
+                                     parent_run=args.parent_run)) as sess:
         ctx = sess.ctx
+        if ctx.parent_run and not ctx.store.list_keys():
+            # derived run (fine-tune of a fine-tune): start from the
+            # ancestor's final state; the first checkpoint is already a
+            # cross-run delta against it
+            print(f"warm start from run {ctx.parent_run!r}", flush=True)
+            state = sess.warm_start("train", like=state)
         # crash-restart: resume from the latest epoch checkpoint if any
         done = set()
         for k in ctx.store.list_keys():
@@ -122,11 +143,12 @@ def main(argv=None):
         store = ctx.store
         ctx.pipeline.drain()
         ckpt_stats = ctx.pipeline.stats
+        warmstart = dict(ctx.warmstart_stats)
     if state.step.is_cuda:
         torch.cuda.synchronize(state.step.device)
     print(f"record wall {time.time() - t0:.2f}s")
     return {"state": state, "run_dir": args.run_dir, "store": store,
-            "ckpt_stats": ckpt_stats}
+            "ckpt_stats": ckpt_stats, "warmstart": warmstart}
 
 
 if __name__ == "__main__":

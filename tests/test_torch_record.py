@@ -140,11 +140,8 @@ def test_launcher_without_device_flag_refuses_cpu(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    """Warm start and mesh-sharded / multi-process runs are later slices:
-    they raise instead of running something else."""
-    with flor.Session(str(tmp_path / "w")) as sess:
-        with pytest.raises(NotImplementedError, match="warm_start"):
-            sess.warm_start("train")
+    """Mesh-sharded / multi-process runs are later slices: they raise
+    instead of running something else."""
     for kw in ({"mesh": object()}, {"distributed": True}):
         with pytest.raises(NotImplementedError, match="items 12-13"):
             flor.FlorContext(str(tmp_path / "m"), "record", **kw)
