@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --mixtral-only]
 
 Run from a checkout on a machine with one NVIDIA H100. Phases:
 
@@ -38,67 +38,96 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
      is timed beside ``scaled_dot_product_attention`` (with a
      ``causal_lower_right`` mask at Sq < Sk); quantize / dequantize beside
      their library peer where one call computes the function;
-3. a small-input model check: the same weights on the CPU and the card
+3. phase M, mixtral-8x7b at its published widths cut from 32 layers to 1
+   (one whole period: every layer is SWA + MoE), one 8192-token sequence
+   a step, random weights from the seed made on the card (1.72 B
+   parameters, a 20.59 GB TrainState):
+   - M1: the port's ``moe_apply`` against a plain per-expert version
+     (``plain_moe``: no sort, no gather, no scatter) on the layer's input
+     and on that input leaning towards expert 0 (which drops choices): in
+     f32 with TF32 off the top-k ids and drop fractions equal and the
+     output within 1e-5 of its largest magnitude; the bf16-compute path's
+     error printed beside it, within its tolerance;
+   - M2: ``flor.Session`` record, 2 epochs x 3 steps, the adaptive
+     controller on at eps = 1/15 as the launcher runs it, loss / moe_aux /
+     moe_dropped logged every step; each epoch's Eq. 4 test printed (M
+     estimate, C, bound), and the phase fails at once if a checkpoint
+     materialization starts (a 20.59 GB write would take the host ~20
+     minutes);
+   - M3: the replay with a probe in the inner loop re-executes every
+     epoch: the deferred check passes and the final state equals the
+     recorded one bit for bit; step wall and tokens/s printed;
+   - the fingerprint kernels (plain and fused) on every leaf of that
+     state, the 1 879 048 192-byte expert leaves included, bit for bit
+     against their plain versions, one pass of each timed beside its bound;
+4. a small-input model check: the same weights on the CPU and the card
    give the same loss;
-4. main path A: ``repro_torch.launch.train.main`` at the full
+5. main path A: ``repro_torch.launch.train.main`` at the full
    florbench-100m width (batch 8, seq 512, 2 epochs x 3 steps, every epoch
    checkpointed) into the shared store ``build/chip_smoke/store`` as run
    ``A``, then a restore of ``A::train@1.0`` that must equal the live state
    bit for bit;
-5. replay R2: ``python -m repro_torch.launch.replay --probe train
+6. replay R2: ``python -m repro_torch.launch.replay --probe train
    --nworkers 2 --check`` over path A's run on the card (the run dir's
    ``flor.run.json`` leads it to the shared store): two worker processes
    share the card, and the deferred check must pass at its own rtol 1e-4
    with one hindsight row per step;
-6. replay R1: ``flor.Session(mode="replay")`` over path A's run with no
+7. replay R1: ``flor.Session(mode="replay")`` over path A's run with no
    probed block: every epoch restored onto the card (seconds and GB/s per
    restore), an outer probe logging the embedding norm, and the final
    state equal to the recorded one bit for bit; its kernel launches are
    counted as a path's (the restore path runs none);
-7. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps:
+8. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps:
    a full checkpoint, then a delta that inherits the full one's quantized
    chunks) with ``RecordSpec(ckpt_error_bounds={"mu": 1e-2, "nu": 1e-3},
    ckpt_overlap=True)``; the restore of the delta through that lossy chain
    holds ``mu``/``nu`` within their bounds, every other leaf bit for bit. At these bounds the selector stores every
    moment chunk as q4, so the q8 kernel does not run here;
-8. main path C: the same Session with tight bounds
+9. main path C: the same Session with tight bounds
    (``TIGHT_BOUNDS``, 1 epoch x 3 steps), at which the selector splits
    the moment chunks between q4, q8 and raw, checked as in B;
-9. path W: the launcher derives run ``W`` from ``A`` (``--parent-run A``,
-   1 epoch x 3 steps): the warm start must seed from ``A::train@1.0``, the
-   first checkpoint must be a delta on it (its transferred bytes and
-   changed chunks printed); the warm-start restore's seconds and GB/s are
-   printed;
-10. path W2: a ``flor.Session`` derived from ``A`` warm-starts onto the card
-   (the fingerprint kernel must launch once per leaf), changes one leaf
-   (``params.ln_f``) and checkpoints: a delta on ``A::train@1.0`` moving no
-   more than that leaf's chunk and under 5% of the logical bytes, restored
-   bit for bit; then digests seeded on the CPU from A's tip (a warm start
-   without ``like``) must move to the card at the first compare: the fused
-   kernel on every leaf of ``params`` plus ``step`` and ``rng``, and only
-   ``ln_f``'s chunk flagged;
-11. replay R3: ``flor.Session(mode="replay")`` over run W: the warm start
-   restores through A's chunks from the key W persisted, the epoch from
+10. the lineage paths run florbench-100m at full width cut to 2 of its 12
+   layers (``LIN_LAYERS``), which shrinks each of their restores and
+   checkpoints 2.8x; path A2: the launcher records their parent, run
+   ``A2`` (1 epoch x 3 steps, ``--layers 2``) into the shared store;
+11. path W: the launcher derives run ``W`` from ``A2`` (``--parent-run
+   A2``, 1 epoch x 3 steps): the warm start must seed from
+   ``A2::train@0.0``, the first checkpoint must be a delta on it (its
+   transferred bytes and changed chunks printed); the warm-start restore's
+   seconds and GB/s are printed;
+12. path W2: a ``flor.Session`` derived from ``A2`` warm-starts onto the
+   card (the fingerprint kernel must launch once per leaf), changes one
+   leaf (``params.ln_f``) and checkpoints: a delta on ``A2::train@0.0``
+   moving no more than that leaf's chunk and under 5% of the logical bytes,
+   restored bit for bit; then digests seeded on the CPU from A2's tip (a
+   warm start without ``like``) must move to the card at the first compare:
+   the fused kernel on every leaf of ``params`` plus ``step`` and ``rng``,
+   and only ``ln_f``'s chunk flagged;
+13. replay R3: ``flor.Session(mode="replay")`` over run W: the warm start
+   restores through A2's chunks from the key W persisted, the epoch from
    W's checkpoint, and the final state must equal W's live state bit for
    bit (the restore check of path W);
-12. path Q: over the shared store, ``flor.log_records`` from the sqlite
+14. path Q: over the shared store, ``flor.log_records`` from the sqlite
    index must equal the file scan row for row (R1's probe rows included),
-   ``flor.pivot(..., "loss")`` must hold A's two epochs and W's one,
-   ``lineage="W"`` must hold A's and W's rows only, and ``python -m
+   ``flor.pivot(..., "loss")`` must hold A's two epochs, A2's one and W's
+   one, ``lineage="W"`` must hold A2's and W's rows only, and ``python -m
    repro_torch.launch.runs list|show|diff|logs|pivot`` must exit 0 (their
    output printed); query walls printed;
-13. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
-   paths A, R1, B, C, W, W2 and R3; for the four ``ops`` kernels, the
-   launches of their own phase), the card line, and last the JSON line
-   ``{"ok": true, "device": {...}}``.
+15. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
+   paths A, R1, B, C, A2, W, W2 and R3 and their pass over the mixtral
+   state; for the four ``ops`` kernels, the launches of their own phase),
+   the card line, and last the JSON line ``{"ok": true, "device":
+   {...}}``.
 
-Any failed phase exits non-zero before the last line is printed. The run
-directories live under ``build/chip_smoke`` (git-ignored) and are removed at
-the end.
+``--kernels-only`` stops after phase 2, ``--mixtral-only`` runs phase M
+alone after the build. Any failed phase exits non-zero before the last line
+is printed. The run directories live under ``build/chip_smoke``
+(git-ignored) and are removed at the end.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -112,8 +141,8 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM bf16 / f16 tensor cores, dense
 SEED = 0
-# paths A, W, W2 (and the replays of A and W) share one store: A is the
-# parent run, W and W2 derive from its final checkpoint
+# paths A, A2, W, W2 (and the replays of A and W) share one store: A2 is
+# the parent run of W and W2, which derive from its final checkpoint
 STORE = os.path.join(WORK, "store")
 # path A: 2 epochs (its third went to make room for the replay phases)
 BATCH, SEQ, EPOCHS, STEPS = 8, 512, 2, 3
@@ -125,6 +154,23 @@ B_BOUNDS = {"mu": 1e-2, "nu": 1e-3}
 # else raw; these put the measured moment amplitudes across all three
 TIGHT_BOUNDS = {"mu": 1e-5, "nu": 1e-8}
 A_TIP = f"A::train@{EPOCHS - 1}.0"
+# W, W2 and R3 run florbench-100m at full width cut to LIN_LAYERS layers,
+# derived from their own parent run A2 (the launcher, 1 x 3 steps, at the
+# same cut): a warm start needs its parent's structure, and the cut makes
+# each of their restores and checkpoints about 2.8x smaller
+LIN_LAYERS = 2
+A2_TIP = "A2::train@0.0"
+# phase M: mixtral-8x7b at its published widths, depth cut from 32 layers
+# to 1, which is one whole period (every layer is SWA + MoE); one sequence
+# of 8192 tokens, so the 4096-token window bites
+M_LAYERS, M_BATCH, M_SEQ, M_EPOCHS, M_STEPS = 1, 1, 8192, 2, 3
+# M1 holds moe_apply to a plain per-expert version, both in f32 with TF32
+# off: only the order of the sums differs, so 1e-5 of the largest output.
+# The bf16-compute path against the same plain f32 math on the same
+# bf16-rounded input (and so the same routing): the port rounds the
+# weights, the expert hidden states and the output to bf16 (2**-9 relative
+# each), so M_BF16_TOL of the largest output
+M_F32_TOL, M_BF16_TOL = 1e-5, 2e-2
 
 
 def fail(msg: str):
@@ -335,6 +381,36 @@ def edge_q_cases(torch, gen, dev, q4: bool):
 
 
 # --------------------------------------------------------- kernel phase --
+def check_fingerprints(torch, name, x, cw, slab=2048):
+    """#2 and #1 on one leaf against their plain versions, bit for bit: the
+    digests, and the fused kernel's digests and mask against a prev that
+    differs in every third row (word 0) and every fifth (word 1). The plain
+    version runs in row slabs, so the int64 words of a 1.88 GB leaf fit
+    beside a 20 GB state. Returns (digests, max abs err of #2, of #1)."""
+    from repro_torch.kernels import ops, ref
+
+    blocks = ops._as_u32_blocks(x, cw)
+    d_ref = torch.cat([ref.fingerprint_ref(blocks[i:i + slab])
+                       for i in range(0, blocks.shape[0], slab)])
+    del blocks
+    d = ops.fingerprint_leaf(x, cw)
+    if not bits_equal(torch, d, d_ref):
+        fail(f"fingerprint digest differs from the plain version on "
+             f"{name} (chunk_words {cw})")
+    prev = d_ref.clone()
+    prev[::3, 0] ^= 1                             # every third row changed
+    prev[1::5, 1] ^= -1
+    d2, m2 = ops.fingerprint_and_changed(x, prev, cw)
+    m2_ref = ref.changed_mask_ref(d_ref, prev).to(torch.int32)
+    if not (bits_equal(torch, d2, d_ref) and bits_equal(torch, m2, m2_ref)):
+        fail(f"fingerprint_changed differs from the plain version on "
+             f"{name} (chunk_words {cw})")
+    if not bool(m2.any()) or bool(m2.all()) and m2.numel() > 2:
+        fail(f"fingerprint_changed mask degenerate on {name}")
+    return d_ref, max_abs_diff(torch, d, d_ref), max(
+        max_abs_diff(torch, d2, d_ref), max_abs_diff(torch, m2, m2_ref))
+
+
 def kernel_phase(torch, dev, hbm_bps, cfg):
     from repro_torch.checkpoint.pipeline import PIPELINE_CHUNK_WORDS as CW
     from repro_torch.checkpoint.pipeline import _fp_view
@@ -352,26 +428,8 @@ def kernel_phase(torch, dev, hbm_bps, cfg):
         + [(p, _fp_view(x), cw) for p, x in edge_fp_leaves(torch, gen, dev)
            for cw in (CW, 1024)]
     for name, x, cw in fp_cases:
-        blocks = ops._as_u32_blocks(x, cw)
-        d_ref = ref.fingerprint_ref(blocks)
-        d = ops.fingerprint_leaf(x, cw)
-        if not bits_equal(torch, d, d_ref):
-            fail(f"fingerprint digest differs from the plain version on "
-                 f"{name} (chunk_words {cw})")
-        err_fp = max(err_fp, max_abs_diff(torch, d, d_ref))
-        prev = d_ref.clone()
-        prev[::3, 0] ^= 1                         # every third row changed
-        prev[1::5, 1] ^= -1
-        d2, m2 = ops.fingerprint_and_changed(x, prev, cw)
-        d2_ref, m2_ref = ref.fingerprint_changed_ref(blocks, prev)
-        if not (bits_equal(torch, d2, d2_ref)
-                and bits_equal(torch, m2, m2_ref)):
-            fail(f"fingerprint_changed differs from the plain version on "
-                 f"{name} (chunk_words {cw})")
-        if not bool(m2.any()) or bool(m2.all()) and m2.numel() > 2:
-            fail(f"fingerprint_changed mask degenerate on {name}")
-        err_fpc = max(err_fpc, max_abs_diff(torch, d2, d2_ref),
-                      max_abs_diff(torch, m2, m2_ref))
+        _, e_fp, e_fpc = check_fingerprints(torch, name, x, cw)
+        err_fp, err_fpc = max(err_fp, e_fp), max(err_fpc, e_fpc)
         n_cases += 1
     say(f"kernel fingerprint / fingerprint_changed: {n_cases} leaves "
         f"bit-exact vs plain (max_abs_err {err_fp} / {err_fpc})")
@@ -814,13 +872,16 @@ def host_line(tag: str, stats: list):
         f"compressed and written; entropy stage {ent:.2f} s)")
 
 
-def launch_train(dev, run: str, epochs: int, *extra, smoke=False) -> dict:
-    """``repro_torch.launch.train.main`` at the full width into the shared
-    store; returns its result dict."""
+def launch_train(dev, run: str, epochs: int, *extra, smoke=False,
+                 layers=None) -> dict:
+    """``repro_torch.launch.train.main`` at the full width (cut to
+    ``layers`` layers if given) into the shared store; returns its result
+    dict."""
     from repro_torch.launch import train as launcher
 
     return launcher.main(["--arch", "florbench-100m", "--device", str(dev),
                           *(["--smoke"] if smoke else []),
+                          *(["--layers", str(layers)] if layers else []),
                           "--batch", str(BATCH), "--seq", str(SEQ),
                           "--epochs", str(epochs),
                           "--steps-per-epoch", str(STEPS), "--no-adaptive",
@@ -1018,29 +1079,57 @@ def session_path(torch, ops, dev, cfg, tag: str, bounds: dict, epochs: int):
 
 
 # ------------------------------------------------------------ lineage --
+def path_a2(torch, ops, dev, smoke=False):
+    """The parent of W and W2: the record launcher at full width cut to
+    ``LIN_LAYERS`` layers, 1 epoch x 3 steps, one exact checkpoint, into
+    the shared store as run A2. Its restore is checked through W's warm
+    start (R3) and W2's."""
+    from repro_torch.checkpoint import CheckpointStore
+
+    run = os.path.join(WORK, "path_a2")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launch_train(dev, run, 1, "--run-id", "A2", smoke=smoke,
+                       layers=LIN_LAYERS)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    keys = CheckpointStore(STORE).list_keys(run="A2")
+    if len(keys) != 1:
+        fail(f"path A2 wrote checkpoints {keys}, expected {A2_TIP} alone")
+    width = out["state"].params["embed"]["table"].shape[1]
+    say(f"path A2: launcher main() {width}-wide florbench-100m cut to "
+        f"{LIN_LAYERS} layers, 1x{STEPS} steps in {wall:.2f} s into the "
+        f"shared store as run A2, the parent of W and W2")
+    host_line("path A2", out["ckpt_stats"])
+    return counts
+
+
 def path_w(torch, ops, dev, smoke=False):
-    """The record launcher derives run W from run A (``--parent-run A``):
-    the warm start restores A's tip onto the card and seeds the delta
-    pipeline there, so W's first checkpoint is a delta against A's tip
-    (three full training steps later nearly every chunk has changed, so
-    its transfer is near the logical size: a fact, not a gate). The
-    restore of W's checkpoint is R3's: it must equal W's live state."""
+    """The record launcher derives run W from run A2 (``--parent-run
+    A2``, the same depth cut): the warm start restores A2's tip onto the
+    card and seeds the delta pipeline there, so W's first checkpoint is a
+    delta against A2's tip (three full training steps later nearly every
+    chunk has changed, so its transfer is near the logical size: a fact,
+    not a gate). The restore of W's checkpoint is R3's: it must equal W's
+    live state."""
     run = os.path.join(WORK, "path_w")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = launch_train(dev, run, 1, "--run-id", "W", "--parent-run", "A",
-                       smoke=smoke)
+    out = launch_train(dev, run, 1, "--run-id", "W", "--parent-run", "A2",
+                       smoke=smoke, layers=LIN_LAYERS)
     sync(torch, dev)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     ws = out["warmstart"].get("train") or {}
-    if not ws.get("seeded") or ws.get("parent_key") != A_TIP:
+    if not ws.get("seeded") or ws.get("parent_key") != A2_TIP:
         fail(f"path W warm start {ws}")
     first = out["ckpt_stats"][0]
-    if first["kind"] != "delta" or first["parent"] != A_TIP:
+    if first["kind"] != "delta" or first["parent"] != A2_TIP:
         fail(f"path W first checkpoint is {first['kind']} on "
-             f"{first['parent']}, expected a delta on {A_TIP}")
-    say(f"path W: launcher --parent-run A, 1x{STEPS} steps in {wall:.2f} s; "
+             f"{first['parent']}, expected a delta on {A2_TIP}")
+    say(f"path W: launcher --parent-run A2 --layers {LIN_LAYERS}, "
+        f"1x{STEPS} steps in {wall:.2f} s; "
         f"warm start from {ws['parent_key']}: {ws['leaves']} leaves "
         f"seeded, restore {ws['restore_s']:.2f} s "
         f"({ws['bytes'] / ws['restore_s'] / 1e9:.3f} GB/s); first "
@@ -1054,11 +1143,12 @@ def path_w(torch, ops, dev, smoke=False):
 
 
 def path_w2(torch, ops, dev, cfg):
-    """A ``flor.Session`` derived from run A warm-starts onto the card:
-    the seeding fingerprint must launch once per leaf there. Then ONE leaf
-    changes (``params.ln_f``) and the first checkpoint must be a delta on
-    A's tip that moves that leaf's chunk and nothing else — what a seed on
-    the CPU, or over the wrong view, would get wrong."""
+    """A ``flor.Session`` derived from run A2 (``cfg`` is its depth cut)
+    warm-starts onto the card: the seeding fingerprint must launch once per
+    leaf there. Then ONE leaf changes (``params.ln_f``) and the first
+    checkpoint must be a delta on A2's tip that moves that leaf's chunk and
+    nothing else — what a seed on the CPU, or over the wrong view, would
+    get wrong."""
     import repro_torch.flor as flor
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.checkpoint.pipeline import PIPELINE_CHUNK_WORDS as CW
@@ -1069,7 +1159,7 @@ def path_w2(torch, ops, dev, cfg):
     state = init_state(SEED)
     ops.reset_launch_counts()
     lineage = flor.LineageSpec(store_root=STORE, run_id="W2",
-                               parent_run="A")
+                               parent_run="A2")
     t0 = time.perf_counter()
     with flor.Session(os.path.join(WORK, "path_w2"), mode="record",
                       record=flor.RecordSpec(adaptive=False),
@@ -1096,7 +1186,7 @@ def path_w2(torch, ops, dev, cfg):
     leaf_bytes = ln_f.numel() * ln_f.element_size()
     cap = -(-ln_f.numel() // CW) * CW * ln_f.element_size()
     frac = stat["transferred_bytes"] / stat["logical_bytes"]
-    if stat["kind"] != "delta" or stat["parent"] != A_TIP \
+    if stat["kind"] != "delta" or stat["parent"] != A2_TIP \
             or not 0 < stat["transferred_bytes"] <= cap or not frac < 0.05:
         fail(f"W2 first checkpoint: {stat['kind']} on {stat['parent']}, "
              f"{stat['transferred_bytes']} bytes moved (the changed leaf's "
@@ -1123,7 +1213,7 @@ def digest_move_check(torch, ops, base, bumped):
     A warm start without ``like`` restores flat CPU tensors and seeds from
     them; the first checkpoint then compares the card's leaves. A tracker
     is seeded so, through the pipeline's word view, from CPU copies of
-    ``base`` (A's tip) for the ``params`` leaves, ``step`` and ``rng``, and
+    ``base`` (A2's tip) for the ``params`` leaves, ``step`` and ``rng``, and
     dispatched on the card's leaves of ``bumped`` (``params.ln_f`` + 1):
     every leaf must take the fused kernel (no first sight) and only
     ``ln_f``'s chunk may be flagged, which holds only if the CPU's plain
@@ -1172,11 +1262,11 @@ def digest_move_check(torch, ops, base, bumped):
 
 
 def replay_r3(torch, dev, cfg, recorded) -> dict:
-    """Hindsight replay of run W with no probed block: the warm start
-    restores A's tip from the key W's ``flor.run.json`` persisted (through
-    A's chunks), then the epoch restores W's own checkpoint
-    ``W::train@0.0``. The final state must equal W's live state at the end
-    of path W bit for bit."""
+    """Hindsight replay of run W with no probed block (``cfg`` is W's depth
+    cut): the warm start restores A2's tip from the key W's
+    ``flor.run.json`` persisted (through A2's chunks), then the epoch
+    restores W's own checkpoint ``W::train@0.0``. The final state must
+    equal W's live state at the end of path W bit for bit."""
     import repro_torch.flor as flor
     from repro_torch.kernels import ops
     from repro_torch.train.step import build_train_step
@@ -1198,7 +1288,7 @@ def replay_r3(torch, dev, cfg, recorded) -> dict:
     sync(torch, dev)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    if ws["parent_key"] != A_TIP or len(samples) != 1:
+    if ws["parent_key"] != A2_TIP or len(samples) != 1:
         fail(f"R3 warm start from {ws['parent_key']}, {len(samples)} "
              f"epoch restores")
     check_restore(torch, {"state": ckpt.state}, {"state": recorded}, {})
@@ -1211,8 +1301,8 @@ def replay_r3(torch, dev, cfg, recorded) -> dict:
 
 
 def path_q(torch):
-    """The lineage query surface over the shared store after A, R2, R1, W,
-    W2 and R3: the sqlite index and the file scan give the same rows, the
+    """The lineage query surface over the shared store after A, R2, R1, A2,
+    W, W2 and R3: the sqlite index and the file scan give the same rows, the
     pivot and the lineage filter see the runs they should, and the ``runs``
     CLI answers."""
     import repro_torch.flor as flor
@@ -1234,14 +1324,14 @@ def path_q(torch):
     piv = flor.pivot(STORE, "loss")
     t_pivot = time.perf_counter() - t0
     cells = [(r["run_id"], r["epoch"]) for r in piv]
-    want = [("A", e) for e in range(EPOCHS)] + [("W", 0)]
+    want = [("A", e) for e in range(EPOCHS)] + [("A2", 0), ("W", 0)]
     if cells != want or not all(isinstance(r["loss"], float)
                                 and r["loss"] == r["loss"] for r in piv):
         fail(f"Q: pivot loss cells {cells}, expected {want}: {piv}")
     t0 = time.perf_counter()
     lin = {r["run_id"] for r in flor.log_records(STORE, lineage="W")}
     t_lineage = time.perf_counter() - t0
-    if lin != {"A", "W"}:
+    if lin != {"A2", "W"}:
         fail(f"Q: lineage W rows come from runs {sorted(lin)}")
     if not any(r["run_id"] == "W2" for r in by_index):
         fail("Q: run W2 logged no row")
@@ -1253,7 +1343,7 @@ def path_q(torch):
         [sys.executable, "-m", "repro_torch.launch.runs", *args,
          "--store-root", STORE], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True))
-        for args in (["list"], ["show", "W"], ["diff", "A", "W"], ["logs"],
+        for args in (["list"], ["show", "W"], ["diff", "A2", "W"], ["logs"],
                      ["pivot", "loss"])]
     t_cli = {}
     for args, proc in procs:
@@ -1278,9 +1368,305 @@ def path_q(torch):
         + ", ".join(f"{k} {v:.2f} s" for k, v in t_cli.items()))
 
 
+# -------------------------------------------------------------- phase M --
+def mixtral_cfg():
+    """mixtral-8x7b at its published widths (d_model 4096, 32 heads, 8 KV
+    heads, head_dim 128, 8 experts top-2 softmax, d_ff_expert 14336,
+    capacity factor 1.25, vocab 32000 padded to 32256, window 4096, rope
+    theta 1e6, untied embeddings), cut from 32 layers to ``M_LAYERS``."""
+    import repro_torch.configs as C
+
+    return C.get("mixtral-8x7b").replace(num_layers=M_LAYERS)
+
+
+def plain_moe(torch, cfg, p, x):
+    """The MoE layer as plain per-expert code: the router logits as the
+    port forms them (one einsum in ``x``'s dtype), softmax, the top k by
+    repeated ``argmax`` (which takes the lowest index among equal scores,
+    as ``jax.lax.top_k`` orders ties: bf16 logits tie often), renormalized
+    weights; expert e keeps the first C of the choices routed to it in
+    (token, choice) order, runs its swiglu MLP (mixtral's) in f32 on every
+    token and adds its output weighted by the kept choices' weights (zero
+    elsewhere). No sort, no gather, no scatter. Returns (y f32 [T, d], ids
+    [T, k], dropped fraction, tokens whose k-th and (k+1)-th scores tie)."""
+    F = torch.nn.functional
+    mo = cfg.moe
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    T, k, E = xf.shape[0], mo.top_k, mo.num_experts
+    logits = torch.einsum("td,de->te", xf,
+                          p["router"].to(xf.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    left, ids, w = probs, [], []
+    for _ in range(k):
+        i = left.argmax(-1)
+        hot = F.one_hot(i, E).bool()
+        ids.append(i)
+        w.append((probs * hot).sum(-1))
+        left = left.masked_fill(hot, -1.0)
+    ids, w = torch.stack(ids, -1), torch.stack(w, -1)
+    ties = int((left.amax(-1) == w[:, -1]).sum())
+    w = w / w.sum(-1, keepdim=True)
+    cap = max(math.ceil(k * T / E * mo.capacity_factor), 4)
+    x32 = xf.float()
+    pe = p["experts"]
+    y = torch.zeros(T, d, device=x.device)
+    kept_n = 0
+    for e in range(E):
+        mine = ids == e
+        rank = torch.cumsum(mine.reshape(-1).int(), 0).reshape(T, k) - 1
+        kept = mine & (rank < cap)
+        kept_n += int(kept.sum())
+        h = F.silu(x32 @ pe["wg"][e]) * (x32 @ pe["wi"][e])
+        y += (w * kept).sum(-1)[:, None] * (h @ pe["wo"][e])
+    return y, ids, (T * k - kept_n) / (T * k), ties
+
+
+def phase_m1(torch, dev, cfg, params):
+    """The port's ``moe_apply`` on the card against ``plain_moe`` on the
+    same input: the layer's input from the first training batch (its
+    embedded tokens, RMS-normed), and that input leaning towards expert 0,
+    which then drops choices. f32 with TF32 off: the top-k ids equal, the
+    drop fractions equal, the output within ``M_F32_TOL`` of its largest
+    magnitude; the bf16-compute path beside it, within ``M_BF16_TOL``."""
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import embed_tokens, rms_norm
+    from repro_torch.models.transformer import _layer
+    from repro_torch.train.step import batch_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg.replace(dtype="float32")
+    lyr = _layer(params["layers"], 0)
+    p = lyr["moe"]
+    tokens = batch_to_device(synthetic_batch(cfg, M_BATCH, M_SEQ, 0, SEED),
+                             dev)["tokens"]
+    with torch.no_grad():
+        x = rms_norm(embed_tokens(cfg32, params["embed"]["table"], tokens,
+                                  torch.float32), lyr["ln2"], cfg.norm_eps)
+        r0 = p["router"][:, 0]
+        cases = [("layer input", x), ("leaning to expert 0",
+                                      x + 3.0 * r0 / r0.norm())]
+        for name, xc in cases:
+            out = {}
+            for c, xin in ((cfg32, xc), (cfg, xc.bfloat16())):
+                y, m = moe.moe_apply(c, p, xin)
+                _, ids, _ = moe.route(c, p["router"], xin.reshape(-1,
+                                                                  cfg.d_model))
+                y_ref, ids_ref, drop_ref, ties = plain_moe(torch, c, p, xin)
+                if not torch.equal(ids, ids_ref):
+                    fail(f"M1 {name} {c.dtype}: top-k ids differ on "
+                         f"{int((ids != ids_ref).any(-1).sum())} tokens")
+                if float(m["moe_dropped"]) != drop_ref:
+                    fail(f"M1 {name} {c.dtype}: dropped "
+                         f"{float(m['moe_dropped'])} vs plain {drop_ref}")
+                scale = float(y_ref.abs().max())
+                err = max_abs_diff(torch, y.reshape(y_ref.shape), y_ref)
+                tol = (M_F32_TOL if c is cfg32 else M_BF16_TOL) * scale
+                if not (err <= tol and bool(torch.isfinite(y).all())):
+                    fail(f"M1 {name} {c.dtype}: max err {err} > {tol}")
+                out[c.dtype] = (err, tol, drop_ref, ties)
+            e32, t32, drop, _ = out["float32"]
+            e16, t16, _, ties16 = out["bfloat16"]
+            say(f"M1 moe_apply on {name} [{M_BATCH * M_SEQ} tokens, "
+                f"d {cfg.d_model}, {cfg.moe.num_experts} experts top-"
+                f"{cfg.moe.top_k}, capacity "
+                f"{moe.capacity(cfg, M_BATCH * M_SEQ)}]: "
+                f"top-k ids equal, dropped {drop:.4f} equal; f32 max err "
+                f"{e32:.3e} (atol {M_F32_TOL} x max|y| = {t32:.3e}); bf16 "
+                f"compute max err {e16:.3e} (atol {M_BF16_TOL} x max|y| = "
+                f"{t16:.3e}: weights, hidden states and output rounded to "
+                f"bf16; {ties16} tokens with the k-th and next router "
+                f"scores tied, lowest index first)")
+
+
+def controller_line(ctrl, block: str, est_bytes: int) -> str:
+    """The Eq. 4 test the controller made at the end of this epoch's
+    block, as ``AdaptiveController.should_materialize`` computes it."""
+    b = ctrl.blocks[block]
+    frac = b.tfrac.value if b.tfrac.count else 1.0
+    M = b.M.value if b.M.count else est_bytes * frac / ctrl.write_bps
+    thr = (b.n / (b.k + b.pending + 1)) * min(1.0 / (1.0 + ctrl.c.value),
+                                              ctrl.effective_epsilon())
+    if ctrl.should_materialize(block, est_bytes=est_bytes) or b.k \
+            or b.pending:
+        fail(f"M2: the controller would checkpoint (M {M} s, C "
+             f"{b.C.value} s, bound {thr})")
+    return (f"M estimate {M:.2f} s ({est_bytes / 1e9:.2f} GB at the "
+            f"calibrated {ctrl.write_bps / 1e6:.1f} MB/s), C {b.C.value:.3f}"
+            f" s, M/C {M / b.C.value:.2f} >= Eq. 4 bound n/(k+1) x "
+            f"min(1/(1+c), eps) = {thr:.4f}: declined")
+
+
+M_KEYS = ("loss", "moe_aux", "moe_dropped")
+
+
+def mixtral_loop(torch, dev, cfg, init_state, train_step, run, mode):
+    """Record (``mode="record"``, the controller on at eps = 1/15 as the
+    launcher runs it) or replay with a probe in the inner loop (every
+    epoch re-executes), from ``init_state(SEED)``. Logs the loss, moe_aux
+    and moe_dropped at every step. Nothing but the checkpointing scope
+    holds a state, so a step holds two (its input and its output) and the
+    gradients. Returns (final state, step walls, controller lines)."""
+    import repro_torch.flor as flor
+    from repro_torch.data import synthetic_batch
+    from repro_torch.utils.pytree import tree_bytes
+
+    kw = ({"record": flor.RecordSpec(epsilon=1.0 / 15)} if mode == "record"
+          else {"replay": flor.ReplaySpec(probed={"train"})})
+    walls, lines = [], []
+    with flor.Session(run, mode=mode, **kw) as sess:
+        if mode == "record":
+            def refuse(*_a, **_k):
+                fail("M2: a checkpoint materialization started")
+            sess.ctx.submit_checkpoint = refuse
+        steps = sess.arg("steps_per_epoch", M_STEPS)
+        with sess.checkpointing(state=init_state(SEED)) as ckpt:
+            est = tree_bytes(ckpt.state)
+            for epoch in sess.loop("epochs",
+                                   range(sess.arg("epochs", M_EPOCHS))):
+                for s in sess.loop("train", range(steps)):
+                    batch = synthetic_batch(cfg, M_BATCH, M_SEQ,
+                                            epoch * steps + s, SEED)
+                    t0 = time.perf_counter()
+                    ckpt.state, m = train_step(ckpt.state, batch)
+                    sync(torch, dev)
+                    walls.append(time.perf_counter() - t0)
+                    for key in M_KEYS:
+                        flor.log(key, m[key])
+                    if mode == "replay":
+                        flor.log("grad_norm", m["grad_norm"])
+                if mode == "record":
+                    lines.append(f"epoch {epoch}: " + controller_line(
+                        sess.ctx.controller, "train", est))
+    return ckpt.state, walls, lines
+
+
+def phase_m(torch, dev, hbm_bps) -> dict:
+    """Phase M: mixtral-8x7b at full width, one layer, through the port's
+    entry points. M1 the MoE layer against its plain version; M2 a
+    ``flor.Session`` record (2 x 3 steps of 8192 tokens) in which the
+    adaptive controller must decline every checkpoint; M3 a replay that
+    re-executes every epoch with an inner probe: the deferred check passes
+    and the final state equals the recorded one bit for bit; then the
+    fingerprint kernels on every leaf of that state. Returns the kernels'
+    pass over the mixtral leaves for the kernels line."""
+    import repro_torch.flor as flor
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.train.step import build_train_step
+    from repro_torch.utils.pytree import tree_bytes, tree_leaves
+
+    cfg = mixtral_cfg()
+    run = os.path.join(WORK, "path_m")
+    t0 = time.perf_counter()
+    init_state, train_step = build_train_step(cfg, device=dev)
+    state = init_state(SEED)
+    sync(torch, dev)
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    say(f"M: mixtral-8x7b, d_model {cfg.d_model}, {cfg.num_heads} heads / "
+        f"{cfg.num_kv_heads} KV, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k} x d_ff {cfg.moe.d_ff_expert}, window "
+        f"{cfg.sliding_window}, vocab {cfg.vocab_size}, {cfg.num_layers} of "
+        f"32 layers: {n_params} parameters, TrainState "
+        f"{tree_bytes(state) / 1e9:.2f} GB, built on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    phase_m1(torch, dev, cfg, state.params)
+    del state
+    torch.cuda.reset_peak_memory_stats(dev)
+    recorded, walls, lines = mixtral_loop(torch, dev, cfg, init_state,
+                                          train_step, run, "record")
+    for line in lines:
+        say(f"M2 controller {line}")
+    keys = CheckpointStore(os.path.join(run, "store")).list_keys()
+    if keys:
+        fail(f"M2 materialized checkpoints {keys}")
+    rows = [r for r in flor.log_records(run) if r["key"] in M_KEYS]
+    if len(rows) != len(M_KEYS) * M_EPOCHS * M_STEPS or not all(
+            r["value"] == r["value"] for r in rows):
+        fail(f"M2 logged {len(rows)} rows: {rows}")
+    drops = [r["value"] for r in rows if r["key"] == "moe_dropped"]
+    say(f"M2 record: {M_EPOCHS}x{M_STEPS} steps of {M_BATCH}x{M_SEQ} tokens, "
+        f"no checkpoint materialized; loss "
+        f"{[round(r['value'], 4) for r in rows if r['key'] == 'loss']}, "
+        f"moe_dropped {drops}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    wall = statistics.median(walls[1:])
+    say(f"M step wall: {wall:.3f} s (median of steps 2-{len(walls)} of the "
+        f"record; first step {walls[0]:.3f} s)")
+    say(f"M tokens/s: {M_BATCH * M_SEQ / wall:.0f}")
+    host = [x.cpu() for x in tree_leaves(recorded)]
+    del recorded
+    torch.cuda.empty_cache()
+    replayed, r_walls, _ = mixtral_loop(torch, dev, cfg, init_state,
+                                        train_step, run, "replay")
+    rec, reps = flor.run_logs(run)
+    res = flor.deferred_check(rec, reps)
+    want = len(M_KEYS) * M_EPOCHS * M_STEPS
+    if not res.ok or res.compared != want \
+            or res.hindsight_only != M_EPOCHS * M_STEPS:
+        fail(f"M3 deferred check: ok={res.ok} compared={res.compared} "
+             f"hindsight={res.hindsight_only} {res.anomalies[:3]}")
+    leaves = tree_leaves(replayed)
+    if len(leaves) != len(host) or not all(
+            bits_equal(torch, a, b.to(dev)) for a, b in zip(leaves, host)):
+        fail("M3: the replayed final state differs from the recorded one")
+    del host
+    say(f"M3 replay: every epoch re-executed ({len(r_walls)} steps, median "
+        f"{statistics.median(r_walls[1:]):.3f} s), deferred check: ok=True "
+        f"compared={res.compared} hindsight={res.hindsight_only}; final "
+        f"state bit-identical to the recorded one on all {len(leaves)} "
+        f"leaves")
+    return mixtral_fingerprints(torch, dev, hbm_bps, replayed)
+
+
+def mixtral_fingerprints(torch, dev, hbm_bps, state) -> dict:
+    """#2 and #1 through ``kernels/ops.py`` on every leaf of the mixtral
+    TrainState at the pipeline's 64 KiB chunks, digests and masks bit for
+    bit against the plain versions (``check_fingerprints``), then one pass
+    of each timed beside its bound."""
+    from repro_torch.checkpoint.pipeline import PIPELINE_CHUNK_WORDS as CW
+    from repro_torch.checkpoint.pipeline import _fp_view
+    from repro_torch.kernels import ops
+    from repro_torch.utils.pytree import tree_leaves_with_paths
+
+    views, prevs = [], []
+    for path, x in tree_leaves_with_paths(state):
+        v = _fp_view(x)
+        views.append(v)
+        prevs.append(check_fingerprints(torch, f"mixtral leaf {path}", v,
+                                        CW)[0])
+    rows = sum(p.shape[0] for p in prevs)
+    big = max(views, key=lambda v: v.numel() * v.element_size())
+    leaf_bytes = sum(v.numel() * v.element_size() for v in views)
+    dig_bytes = sum(p.numel() * 4 for p in prevs)
+    words = leaf_bytes // 4
+    out = {}
+    for name, calls, nbytes in (
+            ("fingerprint", [lambda v=v: ops.fingerprint_leaf(v, CW)
+                             for v in views], leaf_bytes + dig_bytes),
+            ("fingerprint_changed",
+             [lambda v=v, p=p: ops.fingerprint_and_changed(v, p, CW)
+              for v, p in zip(views, prevs)],
+             leaf_bytes + 2 * dig_bytes + dig_bytes // 2)):
+        t = time_calls(torch, calls, reps=3)
+        b, by = bound(hbm_bps, nbytes, 8 * words)
+        out[name] = {"leaves": len(views), "rows": rows,
+                     "bytes": leaf_bytes, "ms": t["ms"],
+                     "pass_ms": t["pass_ms"], "bound_ms": b, "bound_by": by}
+        say(f"kernel {name} on the mixtral TrainState: {len(views)} leaves, "
+            f"{rows} rows of 64 KiB ({leaf_bytes / 1e9:.2f} GB; the largest "
+            f"leaf {big.numel() * big.element_size()} bytes, "
+            f"{-(-big.numel() * big.element_size() // (4 * CW))} rows) "
+            f"bit-exact vs plain; {t['ms']:.4f} ms on the card, bound "
+            f"{b:.4f} ms ({by}), {b / t['ms']:.0%} of it; the pass as "
+            f"issued {t['pass_ms']:.4f} ms")
+    return out
+
+
 # ------------------------------------------------------------------ main --
 # kernel -> (CUDA source, the TPU kernel it replaces, its path); "record"
-# kernels must have launched on paths A-C and W-R3, "ops" kernels report the
+# kernels must have launched on paths A-C and A2-R3, "ops" kernels report the
 # launches of their own phase (kernels/ops.py is their only entry point)
 KERNELS = {
     "fingerprint": ("chunk_delta.cu", "chunk_delta.py:37", "record"),
@@ -1312,7 +1698,8 @@ def kernels_line(results: dict, paths: dict) -> list:
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "pass_ms": r["pass_ms"], "dispatch_us": r["dispatch_us"],
                  "path": path}
-        for extra in ("cases", "routes", "small_call_ms", "launch_floor_ms"):
+        for extra in ("cases", "routes", "small_call_ms", "launch_floor_ms",
+                      "mixtral_pass"):
             if extra in r:
                 entry[extra] = r[extra]
         line.append(entry)
@@ -1386,6 +1773,14 @@ def main():
     for line in ptxas_report(cuda_build.build_log, NEW_KERNELS):
         say(f"  ptxas {line}")
 
+    def lap(tag):
+        say(f"phase {tag} done at {time.perf_counter() - t_start:.1f} s")
+
+    if "--mixtral-only" in sys.argv[1:]:
+        phase_m(torch, dev, hbm_bps)
+        lap("M")
+        say("--mixtral-only: stopping after phase M")
+        return
     cfg = C.get("florbench-100m")
     results = kernel_phase(torch, dev, hbm_bps, cfg)
     if "--kernels-only" in sys.argv[1:]:
@@ -1394,10 +1789,12 @@ def main():
                         for k, r in results.items()}))
         say("--kernels-only: stopping after the kernel phases")
         return
-    def lap(tag):
-        say(f"phase {tag} done at {time.perf_counter() - t_start:.1f} s")
-
     lap("kernels")
+    # phase M before the florbench-100m paths: it needs most of the card
+    for kname, r in phase_m(torch, dev, hbm_bps).items():
+        results[kname]["mixtral_pass"] = r
+    torch.cuda.empty_cache()
+    lap("M")
     model_check(torch, dev)
     counts_a, state_a = main_path_a(torch, ops, dev)
     lap("A")
@@ -1411,17 +1808,21 @@ def main():
     counts_c = session_path(torch, ops, dev, cfg, "c", TIGHT_BOUNDS,
                             C_EPOCHS)
     lap("C")
+    counts_a2 = path_a2(torch, ops, dev)
+    lap("A2")
+    cfg_lin = cfg.replace(num_layers=LIN_LAYERS)
     counts_w, state_w = path_w(torch, ops, dev)
     lap("W")
-    counts_w2 = path_w2(torch, ops, dev, cfg)
+    counts_w2 = path_w2(torch, ops, dev, cfg_lin)
     lap("W2")
-    counts_r3 = replay_r3(torch, dev, cfg, state_w)
+    counts_r3 = replay_r3(torch, dev, cfg_lin, state_w)
     del state_w
     lap("R3")
     path_q(torch)
     lap("Q")
     paths = {"A": counts_a, "R1": counts_r1, "B": counts_b, "C": counts_c,
-             "W": counts_w, "W2": counts_w2, "R3": counts_r3}
+             "A2": counts_a2, "W": counts_w, "W2": counts_w2,
+             "R3": counts_r3}
     for tag, counts in paths.items():
         say(f"launches path {tag}: {json.dumps(counts)}")
     say(json.dumps({"kernels": kernels_line(results, paths)}))
@@ -1429,7 +1830,7 @@ def main():
     say(f"total wall {time.perf_counter() - t_start:.1f} s")
     say(smi_line())
     say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 

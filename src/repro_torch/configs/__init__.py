@@ -3,9 +3,10 @@
 ``get(name)`` -> full published config; ``get_smoke(name)`` -> reduced
 same-family config for CPU smoke tests.
 
-This slice of the package runs the dense florbench-100m model only; the
-other architectures of the reference registry arrive with their model
-families (ROADMAP queue 1, item 11).
+``ARCHS`` holds the reference registry's architectures whose model family
+the package runs (dense, vlm, moe), in the reference's order; the others
+(falcon-mamba-7b, deepseek-v3-671b, zamba2-7b, seamless-m4t-large-v2)
+arrive with their families (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -22,7 +23,14 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exports)
     cell_applicable,
 )
 
-ARCHS: list[str] = []
+ARCHS = [
+    "granite-3-2b",
+    "minitron-4b",
+    "gemma-2b",
+    "qwen3-14b",
+    "mixtral-8x7b",
+    "llava-next-mistral-7b",
+]
 
 # extra (non-assigned) configs: the paper-scale end-to-end example model
 EXTRA = ["florbench-100m"]

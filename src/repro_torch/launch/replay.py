@@ -8,8 +8,8 @@ planner and the cost-balanced scheduler (paper section 5.4 + Fig. 8;
 Runs on the card (``--device cuda``, the default; it fails when there is no
 card) unless ``--device cpu`` is given; the flag goes on to every worker.
 The model, epochs and steps per epoch are the record run's (``flor.arg``
-returns the recorded values); ``--arch``/``--smoke``/``--batch``/``--seq``/
-``--seed`` must match the record run's.
+returns the recorded values); ``--arch``/``--smoke``/``--layers``/
+``--batch``/``--seq``/``--seed`` must match the record run's.
 
 Flow: PLAN (probe set x checkpoint-manifest metadata -> per-epoch segments
 with resume-cost estimates) -> SCHEDULE (LPT cost-balanced shares, dynamic
@@ -57,6 +57,8 @@ def worker_main(args):
     from repro_torch.train.step import build_train_step
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     init_state, ts = build_train_step(cfg, device=args.device)
     probed = frozenset(p for p in args.probe.split(",") if p) \
         if args.probe and args.probe != "auto" else frozenset()
@@ -112,6 +114,8 @@ def _worker_cmd(args, pid: int, segments: str) -> list[str]:
            "--segments", segments]
     if args.smoke:
         cmd.append("--smoke")
+    if args.layers:
+        cmd += ["--layers", str(args.layers)]
     return cmd
 
 
@@ -152,6 +156,8 @@ def main(argv=None):
     ap.add_argument("--run-dir", required=True)
     ap.add_argument("--arch", default="florbench-100m")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the record run's depth cut, if it had one")
     ap.add_argument("--device", default="cuda",
                     help="torch device of every worker (default cuda; "
                          "'cpu' runs the kernels' plain versions)")

@@ -5,7 +5,7 @@
 
 Runs on the card (``--device cuda``, the default; it fails when there is no
 card) unless ``--device cpu`` is given. ``--smoke`` picks the reduced
-same-family config.
+same-family config; ``--layers N`` cuts a config's depth, not its widths.
 
 Fault tolerance IS the paper's substrate: on start, if the run dir already
 holds checkpoints, training resumes from the latest epoch checkpoint. Kill
@@ -40,6 +40,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="florbench-100m")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers at its "
+                         "widths (a large model on one card)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -78,6 +81,8 @@ def main(argv=None):
     from repro_torch.train.step import build_train_step
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     init_state, ts = build_train_step(cfg, device=args.device)
     state = init_state(args.seed)
 

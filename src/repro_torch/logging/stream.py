@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.async_writer import AsyncStage
+from repro_torch.checkpoint.store import _leaf_to_np, _to_tensor
 from repro_torch.logging.jsonable import json_default, jsonable
 from repro_torch.logging.segment import (DEFAULT_ROLL_BYTES, SegmentSink,
                                    migrate_flat_to_segments, needs_migration,
@@ -145,12 +146,12 @@ class FingerprintLog:
     def _serialize(self, epoch, seq, key, value) -> tuple[str, int]:
         if isinstance(value, (np.ndarray, torch.Tensor)) \
                 or hasattr(value, "dtype"):
-            host = _to_host(value)
+            host, dtype = _leaf_to_np(value)
             if self._spill and self._store is not None \
                     and host.ndim and int(host.nbytes) > self._spill:
-                value = self._spill_value(host, seq)
+                value = self._spill_value(host, dtype, seq)
             else:
-                value = jsonable(host, key)
+                value = jsonable(_widen_bf16(host, dtype), key)
         else:
             value = jsonable(value, key)   # idempotent for captured values
         rec = {"epoch": epoch, "seq": seq, "key": key, "value": value}
@@ -160,19 +161,23 @@ class FingerprintLog:
         line = json.dumps(rec, default=json_default(key)) + "\n"
         return line, len(line.encode("utf-8"))
 
-    def _spill_value(self, host: np.ndarray, seq: int) -> dict:
+    def _spill_value(self, host: np.ndarray, dtype: str, seq: int) -> dict:
         """Store an oversized array as checkpoint-store chunks and log a
         pointer row instead. The key is a pure function of (stream, seq),
         so sync and async modes produce the same ref. The row also carries
         a content DIGEST: record and replay spill under different stream
         names, and the deferred check compares spill rows by digest — same
         bytes pass, divergent bytes are an anomaly — rather than by the
-        pointer."""
+        pointer. ``host`` holds the value's bytes (a bfloat16 value as its
+        uint16 bit pattern, ``dtype`` "bfloat16"): the row's dtype, nbytes
+        and digest are those of the 2-byte values, as the reference
+        package's ml_dtypes array gives them."""
         import hashlib
         ref = f"logref__{self.stream}__{seq:08d}"
-        self._store.put_tree(ref, {"v": host})
+        self._store.put_tree(ref, {"v": _to_tensor(host, dtype)
+                                   if dtype == "bfloat16" else host})
         self.stats["spilled"] += 1
-        return {"ref": ref, "dtype": str(host.dtype),
+        return {"ref": ref, "dtype": dtype,
                 "shape": list(host.shape), "nbytes": int(host.nbytes),
                 "digest": hashlib.blake2b(
                     np.ascontiguousarray(host).tobytes(),
@@ -215,15 +220,13 @@ class FingerprintLog:
         return read_stream(path)
 
 
-def _to_host(value) -> np.ndarray:
-    """A logged tensor / array as a host numpy array (bfloat16 tensors come
-    over as float32, which holds every bfloat16 value exactly)."""
-    if isinstance(value, torch.Tensor):
-        t = value.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.numpy()
-    return np.asarray(value)
+def _widen_bf16(host: np.ndarray, dtype: str) -> np.ndarray:
+    """A bfloat16 value's uint16 bit pattern as float32 (which holds every
+    bfloat16 value exactly) for the inline JSON path; other arrays as they
+    are."""
+    if dtype == "bfloat16":
+        return (host.astype(np.uint32) << 16).view(np.float32)
+    return host
 
 
 def _capture(value, key):

@@ -1,4 +1,4 @@
-"""Self-attention for the dense family: GQA/MQA, sliding window, qk-norm,
+"""Self-attention of the decoder families: GQA/MQA, sliding window, qk-norm,
 and the two softmax paths of the reference package — ``naive`` (one masked
 softmax over the full score matrix) and ``chunked`` (online softmax over KV
 chunks, O(Sq*chunk) live scores).
@@ -83,11 +83,54 @@ def _sdpa(q, k, v, keep, scale):
     return torch.einsum("bngqk,bknh->bqngh", w.to(v.dtype), v)
 
 
+def _chunk_step(q, kc, vc, o, m, l, start, causal, window, scale,
+                probs_dtype):
+    """One KV chunk of the online softmax: (o, m, l) -> (o, m, l)."""
+    s = torch.einsum("bqngh,bknh->bngqk", q.float(), kc.float()) * scale
+    keep = _keep(q.shape[1], kc.shape[1], 0, start, causal, window, q.device)
+    s = s.masked_fill(~keep, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None]).to(probs_dtype)
+    l = l * corr + p.float().sum(dim=-1)
+    pv = torch.einsum("bngqk,bknh->bngqh", p.float(), vc.float())
+    return o * corr[..., None] + pv, m_new, l
+
+
+class _RecomputedChunk(torch.autograd.Function):
+    """``_chunk_step`` whose backward recomputes the chunk's scores and
+    probabilities instead of saving them; only its inputs stay saved.
+    (``torch.utils.checkpoint`` does the same but keeps the caller's frames,
+    a train step's whole state among them, in a reference cycle until the
+    garbage collector runs.)"""
+
+    @staticmethod
+    def forward(ctx, kw, *inputs):
+        ctx.kw = kw
+        ctx.save_for_backward(*inputs)
+        return _chunk_step(*inputs, **kw)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [x.detach().requires_grad_(need) for x, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+        wrt = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            outs = _chunk_step(*inputs, **ctx.kw)
+        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+        return (None, *[next(got) if x.requires_grad else None
+                        for x in inputs])
+
+
 def _chunked_sdpa(q, k, v, causal, window, scale, chunk,
-                  probs_dtype=torch.float32):
+                  probs_dtype=torch.float32, remat_chunk=False):
     """Online-softmax attention, a loop over KV chunks (the reference
     package's ``lax.scan``). Scores accumulate in f32; ``probs_dtype``
-    holds exp(s - m) as there (bf16 is the reference's perf variant)."""
+    holds exp(s - m) as there (bf16 is the reference's perf variant).
+    ``remat_chunk`` recomputes each chunk's scores and probabilities in
+    the backward pass instead of saving them (the reference's
+    ``jax.checkpoint`` of the scan body), so only the (o, m, l) carries
+    stay live between the passes."""
     B, Sq, KV, G, hd = q.shape
     Sk = k.shape[1]
     o = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=q.device)
@@ -95,18 +138,14 @@ def _chunked_sdpa(q, k, v, causal, window, scale, chunk,
                    device=q.device)
     l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
     for start in range(0, Sk, chunk):
-        kc = k[:, start:start + chunk]
-        vc = v[:, start:start + chunk]
-        s = torch.einsum("bqngh,bknh->bngqk", q.float(), kc.float()) * scale
-        keep = _keep(Sq, kc.shape[1], 0, start, causal, window, q.device)
-        s = s.masked_fill(~keep, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None]).to(probs_dtype)
-        l = l * corr + p.float().sum(dim=-1)
-        pv = torch.einsum("bngqk,bknh->bngqh", p.float(), vc.float())
-        o = o * corr[..., None] + pv
-        m = m_new
+        kw = dict(start=start, causal=causal, window=window, scale=scale,
+                  probs_dtype=probs_dtype)
+        args = (q, k[:, start:start + chunk], v[:, start:start + chunk],
+                o, m, l)
+        if remat_chunk and torch.is_grad_enabled():
+            o, m, l = _RecomputedChunk.apply(kw, *args)
+        else:
+            o, m, l = _chunk_step(*args, **kw)
     o = o / torch.clamp_min(l[..., None], 1e-30)
     return o.permute(0, 3, 1, 2, 4).to(q.dtype)          # [B,Sq,KV,G,hd]
 
@@ -130,5 +169,6 @@ def self_attention(cfg, p, x, *, causal=True, window=None, rope=None):
         o = _chunked_sdpa(q, k, v, causal, window, scale,
                           cfg.attention_chunk,
                           probs_dtype=getattr(torch,
-                                              cfg.attention_probs_dtype))
+                                              cfg.attention_probs_dtype),
+                          remat_chunk=cfg.attention_remat_chunk)
     return _out_proj(cfg, p, o)

@@ -94,7 +94,11 @@ def padded_vocab_size(vocab: int, multiple: int = 512) -> int:
 
 
 def embed_tokens(cfg, table, tokens, compute_dtype):
-    x = table[tokens].to(compute_dtype)
+    # F.embedding, not table[tokens]: the backward of plain indexing adds
+    # repeated tokens' rows with atomics on a multithreaded CPU, so a step
+    # would not give the same bits twice; embedding's backward sums each
+    # row's gradients in one order on the CPU and on the card
+    x = F.embedding(tokens.long(), table).to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=compute_dtype,
                              device=x.device)

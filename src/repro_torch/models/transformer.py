@@ -1,17 +1,18 @@
-"""Decoder-only LM assembly for the dense family.
+"""Decoder-only LM assembly for the dense, vlm and moe families.
 
 Layers stay STACKED on a leading axis (``params["layers"][name]`` is
 [num_layers, ...]), so parameter paths and shapes equal the reference
 package's tree; the forward indexes one layer at a time where the reference
 ``lax.scan``s. The loss is sequence-chunked so [B,S,vocab] logits never
-materialize for large-vocab configs. Other families (moe, ssm, hybrid) are
-later slices (ROADMAP queue 1, item 11).
+materialize for large-vocab configs. MLA attention and the ssm / hybrid
+families are later slices (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (embed_tokens, embedding_spec,
                                        lm_logits, mlp_apply, mlp_spec,
                                        norm_spec, padded_vocab_size,
@@ -24,11 +25,13 @@ def padded_vocab(cfg) -> int:
     return v if v < 512 else padded_vocab_size(v, 512)
 
 
-def _dense_only(cfg):
-    if cfg.family not in ("dense", "vlm") or cfg.mla is not None:
+def _ported_family(cfg):
+    if cfg.family not in ("dense", "vlm", "moe") or cfg.mla is not None:
+        what = "MLA attention" if cfg.mla is not None \
+            else f"family {cfg.family!r}"
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            "item 11); this package runs the dense family")
+            f"{what} is not ported yet (ROADMAP queue 1, item 4); this "
+            "package runs the dense, vlm and moe families")
 
 
 # ------------------------------------------------------------- blocks -----
@@ -42,12 +45,30 @@ def dense_block_spec(cfg):
     }
 
 
+def moe_block_spec(cfg):
+    return {
+        "ln1": norm_spec(cfg.d_model),
+        "attn": attn.attn_spec(cfg),
+        "ln2": norm_spec(cfg.d_model),
+        "moe": moe_mod.moe_spec(cfg),
+    }
+
+
 def dense_block(cfg, p, x, window=None, rope=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + attn.self_attention(cfg, p["attn"], h, causal=True,
                                 window=window, rope=rope)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + mlp_apply(cfg, p["mlp"], h)
+
+
+def moe_block(cfg, p, x, window=None, rope=None):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn.self_attention(cfg, p["attn"], h, causal=True,
+                                window=window, rope=rope)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, metrics = moe_mod.moe_apply(cfg, p["moe"], h)
+    return x + y, metrics
 
 
 def _layer(tree, i: int):
@@ -60,12 +81,18 @@ def _layer(tree, i: int):
 # -------------------------------------------------------------- specs -----
 
 def lm_param_spec(cfg):
-    _dense_only(cfg)
+    _ported_family(cfg)
     pv = padded_vocab(cfg)
     spec = {"embed": embedding_spec(cfg, pv), "ln_f": norm_spec(cfg.d_model)}
     if not cfg.tie_embeddings:
         spec["unembed"] = unembed_spec(cfg, pv)
-    spec["layers"] = stack_spec(dense_block_spec(cfg), cfg.num_layers)
+    if cfg.family == "moe":
+        nd = cfg.moe.first_dense_layers
+        if nd:
+            spec["dense_layers"] = stack_spec(dense_block_spec(cfg), nd)
+        spec["layers"] = stack_spec(moe_block_spec(cfg), cfg.num_layers - nd)
+    else:
+        spec["layers"] = stack_spec(dense_block_spec(cfg), cfg.num_layers)
     return spec
 
 
@@ -73,7 +100,7 @@ def lm_param_spec(cfg):
 
 def lm_forward(cfg, params, tokens=None, embeds=None):
     """Returns (final hidden states [B, S_total, d], metrics)."""
-    _dense_only(cfg)
+    _ported_family(cfg)
     compute_dtype = getattr(torch, cfg.dtype)
     parts = []
     if embeds is not None:
@@ -84,10 +111,26 @@ def lm_forward(cfg, params, tokens=None, embeds=None):
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     S = x.shape[1]
     rope = rope_tables(S, cfg.resolved_head_dim(), cfg.rope_theta, x.device)
-    for i in range(cfg.num_layers):
-        x = dense_block(cfg, _layer(params["layers"], i), x,
-                        cfg.sliding_window, rope)
-    return rms_norm(x, params["ln_f"], cfg.norm_eps), {}
+    window = cfg.sliding_window
+    metrics = {}
+    if cfg.family == "moe":
+        nd = cfg.moe.first_dense_layers
+        for i in range(nd):
+            x = dense_block(cfg, _layer(params["dense_layers"], i), x,
+                            window, rope)
+        aux, drop = [], []
+        for i in range(cfg.num_layers - nd):
+            x, m = moe_block(cfg, _layer(params["layers"], i), x, window,
+                             rope)
+            aux.append(m["moe_aux"])
+            drop.append(m["moe_dropped"])
+        metrics = {"moe_aux": torch.stack(aux).mean(),
+                   "moe_dropped": torch.stack(drop).mean()}
+    else:
+        for i in range(cfg.num_layers):
+            x = dense_block(cfg, _layer(params["layers"], i), x, window,
+                            rope)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), metrics
 
 
 # --------------------------------------------------------------- loss -----
@@ -137,5 +180,8 @@ def lm_loss(cfg, params, batch):
     else:
         loss, lm = ce_loss(cfg, params, hidden[:, :-1], tokens[:, 1:])
     metrics.update(lm)
+    if cfg.moe is not None and cfg.moe.router_aux_loss \
+            and "moe_aux" in metrics:
+        loss = loss + cfg.moe.router_aux_loss * metrics["moe_aux"]
     metrics["loss"] = loss
     return loss, metrics

@@ -60,19 +60,25 @@ def _node(x):
     return None
 
 
+# The recursions below are module functions, not nested closures: a nested
+# function that calls itself sits in a reference cycle with its closure,
+# which would keep every leaf it saw alive until the garbage collector ran
+# (a whole TrainState per train step on the card).
+
+def _flatten(x, path, out: list) -> TreeDef:
+    node = _node(x)
+    if node is None:
+        out.append((path, x))
+        return TreeDef("leaf")
+    kind, ctx, kids = node
+    return TreeDef(kind, ctx, tuple(_flatten(c, path + (k,), out)
+                                    for k, c in kids))
+
+
 def tree_flatten_with_path(tree) -> tuple[list, TreeDef]:
     """([(key path tuple, leaf), ...], treedef) in the reference order."""
     out: list = []
-
-    def rec(x, path):
-        node = _node(x)
-        if node is None:
-            out.append((path, x))
-            return TreeDef("leaf")
-        kind, ctx, kids = node
-        return TreeDef(kind, ctx, tuple(rec(c, path + (k,)) for k, c in kids))
-
-    treedef = rec(tree, ())
+    treedef = _flatten(tree, (), out)
     return out, treedef
 
 
@@ -85,28 +91,28 @@ def tree_leaves(tree) -> list:
     return tree_flatten(tree)[0]
 
 
+def _unflatten(td: TreeDef, it):
+    if td.kind == "leaf":
+        return next(it)
+    if td.kind == "none":
+        return None
+    kids = [_unflatten(c, it) for c in td.children]
+    if td.kind == "dict":
+        typ, keys = td.ctx
+        return typ(zip(keys, kids))
+    if td.kind == "namedtuple":
+        return td.ctx(*kids)
+    if td.kind == "list":
+        return kids
+    if td.kind == "tuple":
+        return tuple(kids)
+    typ, names = td.ctx
+    return typ(**dict(zip(names, kids)))
+
+
 def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     it = iter(leaves)
-
-    def rec(td: TreeDef):
-        if td.kind == "leaf":
-            return next(it)
-        if td.kind == "none":
-            return None
-        kids = [rec(c) for c in td.children]
-        if td.kind == "dict":
-            typ, keys = td.ctx
-            return typ(zip(keys, kids))
-        if td.kind == "namedtuple":
-            return td.ctx(*kids)
-        if td.kind == "list":
-            return kids
-        if td.kind == "tuple":
-            return tuple(kids)
-        typ, names = td.ctx
-        return typ(**dict(zip(names, kids)))
-
-    out = rec(treedef)
+    out = _unflatten(treedef, it)
     if next(it, None) is not None:
         raise ValueError("too many leaves for the tree structure")
     return out
@@ -144,3 +150,18 @@ def block_until_ready(tree):
     for d in devices:
         torch.cuda.synchronize(d)
     return tree
+
+
+def tree_digest(tree) -> str:
+    """blake2b (16 bytes, hex) over every tensor leaf's bytes in flatten
+    order: two trees with the same digest hold the same bits."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for leaf in tree_leaves(tree):
+        t = leaf.detach().cpu().contiguous()
+        if t.is_floating_point():
+            t = t.view({2: torch.int16, 4: torch.int32,
+                        8: torch.int64}[t.element_size()])
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()

@@ -1,0 +1,46 @@
+"""The PyTorch port's copies of the two main-path examples, run on the CPU
+with ``--device cpu``: examples/torch_quickstart.py records, then
+examples/torch_hindsight_replay.py replays the run with its outer probe
+only (every epoch restored) and with its inner probe (every epoch
+re-executed). Each replay must pass the deferred check and end on the
+recorded final state's digest, bit for bit."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EPOCHS, STEPS = 2, 2
+
+
+def _run(script, *args):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "examples",
+                                                     script),
+                        "--device", "cpu", "--epochs", str(EPOCHS),
+                        "--steps-per-epoch", str(STEPS), *args],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    return r.stdout
+
+
+def _digest(out):
+    return re.search(r"final state digest: ([0-9a-f]{32})", out)[1]
+
+
+@pytest.mark.parametrize("arch", ["florbench-100m", "mixtral-8x7b"])
+def test_examples_record_then_replay_bit_identical(tmp_path, arch):
+    run = str(tmp_path / "run")
+    recorded = _digest(_run("torch_quickstart.py", "--arch", arch,
+                            "--run-dir", run, "--no-adaptive"))
+    for probe, compared, hindsight in (
+            ([], 0, EPOCHS),                              # embed_norm only
+            (["--probe-inner"], EPOCHS, EPOCHS * STEPS + EPOCHS)):
+        out = _run("torch_hindsight_replay.py", "--arch", arch, "--run-dir",
+                   run, *probe)
+        assert (f"deferred correctness check: ok=True compared={compared} "
+                f"hindsight_values={hindsight}") in out
+        assert _digest(out) == recorded

@@ -1,6 +1,10 @@
-"""The port's dense model and train step against the reference package's,
-from the same parameters (initialized by the reference, moved over with
-``state_from_numpy``) on the same seeded batch, on the CPU.
+"""The port's models and train step against the reference package's, from
+the same parameters (initialized by the reference, moved over with
+``state_from_numpy``) on the same seeded batch, on the CPU, for the smoke
+config of every architecture the port runs: florbench-100m and the six
+dense, vlm and moe configs of ``repro_torch.configs.ARCHS`` (GQA and MQA,
+qk-norm, gelu / swiglu / geglu / relu2, tied and untied embeddings,
+``embed_scale``, the vlm embedding prefix, routed experts with drops).
 
 Tolerances, and why:
 - float32 compute (``cfg.replace(dtype="float32")``): loss to rtol 1e-5;
@@ -18,6 +22,9 @@ Tolerances, and why:
 - bfloat16 compute (the config's default): loss to rtol 2e-2. The two
   frameworks round intermediates to bf16 at different places.
 """
+import gc
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +32,7 @@ import pytest
 import torch
 
 import repro.configs as JC
+import repro_torch.configs as C
 from repro.models import build_model as jax_build_model
 from repro.train.optimizer import AdamWState as JaxAdamWState
 from repro.train.optimizer import adamw as jax_adamw
@@ -50,6 +58,8 @@ OPT_MOMENT_RTOL = 1e-6
 LR_RTOL = 1e-7
 LOSS_RTOL_BF16 = 2e-2
 
+ARCHS = ["florbench-100m"] + C.ARCHS
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_threads():
@@ -71,10 +81,11 @@ def _torch_batch(b):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-def test_param_tree_matches_reference():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_tree_matches_reference(arch):
     """Same leaf paths, shapes and dtypes as the reference's params, and a
     TrainState round-trips through numpy unchanged."""
-    cfg = JC.get_smoke("florbench-100m")
+    cfg = JC.get_smoke(arch)
     jparams = jax.eval_shape(jax_build_model(cfg).init, jax.random.PRNGKey(0))
     want = [(jax.tree_util.keystr(p), tuple(x.shape), str(x.dtype))
             for p, x in jax.tree_util.tree_leaves_with_path(jparams)]
@@ -90,8 +101,9 @@ def test_param_tree_matches_reference():
 
 
 @pytest.mark.parametrize("impl", ["naive", "chunked"])
-def test_f32_loss_grads_and_step_match_reference(impl):
-    cfg = JC.get_smoke("florbench-100m").replace(
+@pytest.mark.parametrize("arch", ARCHS)
+def test_f32_loss_grads_and_step_match_reference(arch, impl):
+    cfg = JC.get_smoke(arch).replace(
         dtype="float32", attention_impl=impl, attention_chunk=8)
     jstate, np_state, b = _setup(cfg)
     jmodel = jax_build_model(cfg)
@@ -180,8 +192,9 @@ def test_adamw_update_matches_reference(step):
                 <= OPT_MOMENT_RTOL * np.abs(ja).max()
 
 
-def test_bf16_loss_matches_reference():
-    cfg = JC.get_smoke("florbench-100m")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_loss_matches_reference(arch):
+    cfg = JC.get_smoke(arch)
     assert cfg.dtype == "bfloat16"
     jstate, np_state, b = _setup(cfg)
     jloss, _ = jax.jit(jax_build_model(cfg).loss)(
@@ -204,6 +217,27 @@ def test_train_step_is_functional():
         assert torch.equal(a, b)
     assert not torch.equal(new.params["embed"]["table"],
                            st.params["embed"]["table"])
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked"])
+def test_train_step_frees_the_old_state_at_once(impl):
+    """Once the caller drops the input state, no reference cycle keeps it:
+    on the card a step then holds two states, not three, until the
+    garbage collector happens to run (the pytree helpers and the chunked
+    attention's recompute once held one in a cycle)."""
+    cfg = C.get_smoke("mixtral-8x7b").replace(attention_impl=impl,
+                                               attention_chunk=16)
+    init_state, step = build_train_step(cfg, device="cpu")
+    st = init_state(0)
+    alive = [weakref.ref(x) for x in tree_leaves(st)
+             if x.is_floating_point()]
+    gc.collect()
+    gc.disable()
+    try:
+        st, _ = step(st, synthetic_batch(cfg, 2, 48, 0))
+        assert not any(r() is not None for r in alive)
+    finally:
+        gc.enable()
 
 
 def test_entry_points_default_to_cuda():
