@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--kernels-only | --mixtral-only]
+    python3 chip_smoke.py [--kernels-only | --mixtral-only | --families-only]
 
 Run from a checkout on a machine with one NVIDIA H100. Phases:
 
@@ -60,42 +60,56 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    - the fingerprint kernels (plain and fused) on every leaf of that
      state, the 1 879 048 192-byte expert leaves included, bit for bit
      against their plain versions, one pass of each timed beside its bound;
-4. a small-input model check: the same weights on the CPU and the card
+4. phase F, the families ported last, each at its published widths with
+   its depth cut (``F_FAMILIES``), built through ``build_train_step`` on
+   the card from the seed: deepseek-v3 (MLA, its 3 leading dense layers,
+   an empty MoE stack of zero-byte leaves, bf16 parameters and moments),
+   falcon-mamba-7b (Mamba1, 2 layers), zamba2-7b (Mamba2 + the shared
+   attention block, one group of 6) and seamless-m4t-large-v2 (encoder-
+   decoder, 4 + 4 layers). Each records 2 epochs x 2 steps under a
+   ``flor.Session`` with the controller at eps = 1/15 (which must decline
+   every checkpoint), replays every epoch by re-execution with an inner
+   probe (deferred check, final state bit for bit, every gradient norm
+   finite), then runs #2 and #1 over every leaf of that state against
+   their plain versions; one line per family (widths, cut, parameters,
+   state GB, step wall, tokens/s, peak device memory, controller, replay,
+   #1/#2 against their bound);
+5. a small-input model check: the same weights on the CPU and the card
    give the same loss;
-5. main path A: ``repro_torch.launch.train.main`` at the full
+6. main path A: ``repro_torch.launch.train.main`` at the full
    florbench-100m width (batch 8, seq 512, 2 epochs x 3 steps, every epoch
    checkpointed) into the shared store ``build/chip_smoke/store`` as run
    ``A``, then a restore of ``A::train@1.0`` that must equal the live state
    bit for bit;
-6. replay R2: ``python -m repro_torch.launch.replay --probe train
+7. replay R2: ``python -m repro_torch.launch.replay --probe train
    --nworkers 2 --check`` over path A's run on the card (the run dir's
    ``flor.run.json`` leads it to the shared store): two worker processes
    share the card, and the deferred check must pass at its own rtol 1e-4
    with one hindsight row per step;
-7. replay R1: ``flor.Session(mode="replay")`` over path A's run with no
+8. replay R1: ``flor.Session(mode="replay")`` over path A's run with no
    probed block: every epoch restored onto the card (seconds and GB/s per
    restore), an outer probe logging the embedding norm, and the final
    state equal to the recorded one bit for bit; its kernel launches are
    counted as a path's (the restore path runs none);
-8. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps:
+9. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps:
    a full checkpoint, then a delta that inherits the full one's quantized
    chunks) with ``RecordSpec(ckpt_error_bounds={"mu": 1e-2, "nu": 1e-3},
    ckpt_overlap=True)``; the restore of the delta through that lossy chain
    holds ``mu``/``nu`` within their bounds, every other leaf bit for bit. At these bounds the selector stores every
    moment chunk as q4, so the q8 kernel does not run here;
-9. main path C: the same Session with tight bounds
+10. main path C: the same Session with tight bounds
    (``TIGHT_BOUNDS``, 1 epoch x 3 steps), at which the selector splits
    the moment chunks between q4, q8 and raw, checked as in B;
-10. the lineage paths run florbench-100m at full width cut to 2 of its 12
+11. the lineage paths run florbench-100m at full width cut to 2 of its 12
    layers (``LIN_LAYERS``), which shrinks each of their restores and
    checkpoints 2.8x; path A2: the launcher records their parent, run
    ``A2`` (1 epoch x 3 steps, ``--layers 2``) into the shared store;
-11. path W: the launcher derives run ``W`` from ``A2`` (``--parent-run
+12. path W: the launcher derives run ``W`` from ``A2`` (``--parent-run
    A2``, 1 epoch x 3 steps): the warm start must seed from
    ``A2::train@0.0``, the first checkpoint must be a delta on it (its
    transferred bytes and changed chunks printed); the warm-start restore's
    seconds and GB/s are printed;
-12. path W2: a ``flor.Session`` derived from ``A2`` warm-starts onto the
+13. path W2: a ``flor.Session`` derived from ``A2`` warm-starts onto the
    card (the fingerprint kernel must launch once per leaf), changes one
    leaf (``params.ln_f``) and checkpoints: a delta on ``A2::train@0.0``
    moving no more than that leaf's chunk and under 5% of the logical bytes,
@@ -103,25 +117,26 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    warm start without ``like``) must move to the card at the first compare:
    the fused kernel on every leaf of ``params`` plus ``step`` and ``rng``,
    and only ``ln_f``'s chunk flagged;
-13. replay R3: ``flor.Session(mode="replay")`` over run W: the warm start
+14. replay R3: ``flor.Session(mode="replay")`` over run W: the warm start
    restores through A2's chunks from the key W persisted, the epoch from
    W's checkpoint, and the final state must equal W's live state bit for
    bit (the restore check of path W);
-14. path Q: over the shared store, ``flor.log_records`` from the sqlite
+15. path Q: over the shared store, ``flor.log_records`` from the sqlite
    index must equal the file scan row for row (R1's probe rows included),
    ``flor.pivot(..., "loss")`` must hold A's two epochs, A2's one and W's
    one, ``lineage="W"`` must hold A2's and W's rows only, and ``python -m
    repro_torch.launch.runs list|show|diff|logs|pivot`` must exit 0 (their
    output printed); query walls printed;
-15. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
-   paths A, R1, B, C, A2, W, W2 and R3 and their pass over the mixtral
-   state; for the four ``ops`` kernels, the launches of their own phase),
+16. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
+   paths A, R1, B, C, A2, W, W2 and R3 and their passes over the mixtral
+   state and phase F's four states, outside that count; for the four
+   ``ops`` kernels, the launches of their own phase),
    the card line, and last the JSON line ``{"ok": true, "device":
    {...}}``.
 
 ``--kernels-only`` stops after phase 2, ``--mixtral-only`` runs phase M
-alone after the build. Any failed phase exits non-zero before the last line
-is printed. The run directories live under ``build/chip_smoke``
+alone after the build, ``--families-only`` phase F alone. Any failed
+phase exits non-zero before the last line is printed. The run directories live under ``build/chip_smoke``
 (git-ignored) and are removed at the end.
 """
 from __future__ import annotations
@@ -390,8 +405,9 @@ def check_fingerprints(torch, name, x, cw, slab=2048):
     from repro_torch.kernels import ops, ref
 
     blocks = ops._as_u32_blocks(x, cw)
+    # a zero-byte leaf (an empty layer stack) has zero rows
     d_ref = torch.cat([ref.fingerprint_ref(blocks[i:i + slab])
-                       for i in range(0, blocks.shape[0], slab)])
+                       for i in range(0, max(blocks.shape[0], 1), slab)])
     del blocks
     d = ops.fingerprint_leaf(x, cw)
     if not bits_equal(torch, d, d_ref):
@@ -405,7 +421,8 @@ def check_fingerprints(torch, name, x, cw, slab=2048):
     if not (bits_equal(torch, d2, d_ref) and bits_equal(torch, m2, m2_ref)):
         fail(f"fingerprint_changed differs from the plain version on "
              f"{name} (chunk_words {cw})")
-    if not bool(m2.any()) or bool(m2.all()) and m2.numel() > 2:
+    if m2.numel() and (not bool(m2.any())
+                       or bool(m2.all()) and m2.numel() > 2):
         fail(f"fingerprint_changed mask degenerate on {name}")
     return d_ref, max_abs_diff(torch, d, d_ref), max(
         max_abs_diff(torch, d2, d_ref), max_abs_diff(torch, m2, m2_ref))
@@ -1481,7 +1498,7 @@ def phase_m1(torch, dev, cfg, params):
                 f"scores tied, lowest index first)")
 
 
-def controller_line(ctrl, block: str, est_bytes: int) -> str:
+def controller_line(ctrl, block: str, est_bytes: int, tag: str) -> str:
     """The Eq. 4 test the controller made at the end of this epoch's
     block, as ``AdaptiveController.should_materialize`` computes it."""
     b = ctrl.blocks[block]
@@ -1491,7 +1508,7 @@ def controller_line(ctrl, block: str, est_bytes: int) -> str:
                                               ctrl.effective_epsilon())
     if ctrl.should_materialize(block, est_bytes=est_bytes) or b.k \
             or b.pending:
-        fail(f"M2: the controller would checkpoint (M {M} s, C "
+        fail(f"{tag}: the controller would checkpoint (M {M} s, C "
              f"{b.C.value} s, bound {thr})")
     return (f"M estimate {M:.2f} s ({est_bytes / 1e9:.2f} GB at the "
             f"calibrated {ctrl.write_bps / 1e6:.1f} MB/s), C {b.C.value:.3f}"
@@ -1499,48 +1516,114 @@ def controller_line(ctrl, block: str, est_bytes: int) -> str:
             f"min(1/(1+c), eps) = {thr:.4f}: declined")
 
 
-M_KEYS = ("loss", "moe_aux", "moe_dropped")
+# the metrics each record logs at every step, where the model reports them
+LOG_KEYS = ("loss", "moe_aux", "moe_dropped")
 
 
-def mixtral_loop(torch, dev, cfg, init_state, train_step, run, mode):
+def session_loop(torch, dev, cfg, init_state, train_step, run, mode, shape,
+                 tag):
     """Record (``mode="record"``, the controller on at eps = 1/15 as the
     launcher runs it) or replay with a probe in the inner loop (every
-    epoch re-executes), from ``init_state(SEED)``. Logs the loss, moe_aux
-    and moe_dropped at every step. Nothing but the checkpointing scope
+    epoch re-executes), from ``init_state(SEED)``; ``shape`` is (batch,
+    seq, epochs, steps). Logs the ``LOG_KEYS`` the model reports at every
+    step; fails at once if a gradient norm is not finite or (record) a
+    checkpoint materialization starts. Nothing but the checkpointing scope
     holds a state, so a step holds two (its input and its output) and the
-    gradients. Returns (final state, step walls, controller lines)."""
+    gradients. Returns (final state, step walls, controller lines, logged
+    keys)."""
     import repro_torch.flor as flor
     from repro_torch.data import synthetic_batch
     from repro_torch.utils.pytree import tree_bytes
 
+    batch, seq, n_epochs, n_steps = shape
     kw = ({"record": flor.RecordSpec(epsilon=1.0 / 15)} if mode == "record"
           else {"replay": flor.ReplaySpec(probed={"train"})})
-    walls, lines = [], []
+    walls, lines, keys = [], [], ()
     with flor.Session(run, mode=mode, **kw) as sess:
         if mode == "record":
             def refuse(*_a, **_k):
-                fail("M2: a checkpoint materialization started")
+                fail(f"{tag}: a checkpoint materialization started")
             sess.ctx.submit_checkpoint = refuse
-        steps = sess.arg("steps_per_epoch", M_STEPS)
+        steps = sess.arg("steps_per_epoch", n_steps)
         with sess.checkpointing(state=init_state(SEED)) as ckpt:
             est = tree_bytes(ckpt.state)
             for epoch in sess.loop("epochs",
-                                   range(sess.arg("epochs", M_EPOCHS))):
+                                   range(sess.arg("epochs", n_epochs))):
                 for s in sess.loop("train", range(steps)):
-                    batch = synthetic_batch(cfg, M_BATCH, M_SEQ,
-                                            epoch * steps + s, SEED)
+                    b = synthetic_batch(cfg, batch, seq, epoch * steps + s,
+                                        SEED)
                     t0 = time.perf_counter()
-                    ckpt.state, m = train_step(ckpt.state, batch)
+                    ckpt.state, m = train_step(ckpt.state, b)
                     sync(torch, dev)
                     walls.append(time.perf_counter() - t0)
-                    for key in M_KEYS:
+                    if not bool(torch.isfinite(m["grad_norm"])):
+                        fail(f"{tag}: gradient norm {float(m['grad_norm'])}"
+                             f" at epoch {epoch} step {s}")
+                    keys = tuple(k for k in LOG_KEYS if k in m)
+                    for key in keys:
                         flor.log(key, m[key])
                     if mode == "replay":
                         flor.log("grad_norm", m["grad_norm"])
                 if mode == "record":
                     lines.append(f"epoch {epoch}: " + controller_line(
-                        sess.ctx.controller, "train", est))
-    return ckpt.state, walls, lines
+                        sess.ctx.controller, "train", est, tag))
+    return ckpt.state, walls, lines, keys
+
+
+def record_and_replay(torch, dev, cfg, init_state, train_step, run, shape,
+                      tags) -> dict:
+    """A ``flor.Session`` record in which the adaptive controller must
+    decline every checkpoint, then a replay that re-executes every epoch
+    with an inner probe: the deferred check passes and the final state
+    equals the recorded one bit for bit. ``tags`` names the two in the
+    output. Returns the replayed state and the run's figures."""
+    import repro_torch.flor as flor
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.utils.pytree import tree_leaves
+
+    batch, seq, n_epochs, n_steps = shape
+    rec_tag, rep_tag = tags
+    torch.cuda.reset_peak_memory_stats(dev)
+    recorded, walls, lines, keys = session_loop(
+        torch, dev, cfg, init_state, train_step, run, "record", shape,
+        rec_tag)
+    for line in lines:
+        say(f"{rec_tag} controller {line}")
+    stored = CheckpointStore(os.path.join(run, "store")).list_keys()
+    if stored:
+        fail(f"{rec_tag} materialized checkpoints {stored}")
+    rows = [r for r in flor.log_records(run) if r["key"] in keys]
+    if len(rows) != len(keys) * n_epochs * n_steps or not all(
+            r["value"] == r["value"] for r in rows):
+        fail(f"{rec_tag} logged {len(rows)} rows: {rows}")
+    peak_record = torch.cuda.max_memory_allocated(dev)
+    wall = statistics.median(walls[1:])
+    host = [x.cpu() for x in tree_leaves(recorded)]
+    del recorded
+    torch.cuda.empty_cache()
+    replayed, r_walls, _, _ = session_loop(
+        torch, dev, cfg, init_state, train_step, run, "replay", shape,
+        rep_tag)
+    rec, reps = flor.run_logs(run)
+    res = flor.deferred_check(rec, reps)
+    want = len(keys) * n_epochs * n_steps
+    if not res.ok or res.compared != want \
+            or res.hindsight_only != n_epochs * n_steps:
+        fail(f"{rep_tag} deferred check: ok={res.ok} compared={res.compared} "
+             f"hindsight={res.hindsight_only} {res.anomalies[:3]}")
+    leaves = tree_leaves(replayed)
+    if len(leaves) != len(host) or not all(
+            bits_equal(torch, a, b.to(dev)) for a, b in zip(leaves, host)):
+        fail(f"{rep_tag}: the replayed final state differs from the "
+             f"recorded one")
+    del host
+    return {"state": replayed, "rows": rows, "keys": keys,
+            "controller": lines, "walls": walls, "wall": wall,
+            "tokens_per_s": batch * seq / wall, "replay_walls": r_walls,
+            "peak_record_gb": peak_record / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "compared": res.compared, "hindsight": res.hindsight_only,
+            "leaves": len(leaves)}
 
 
 def phase_m(torch, dev, hbm_bps) -> dict:
@@ -1552,8 +1635,6 @@ def phase_m(torch, dev, hbm_bps) -> dict:
     and the final state equals the recorded one bit for bit; then the
     fingerprint kernels on every leaf of that state. Returns the kernels'
     pass over the mixtral leaves for the kernels line."""
-    import repro_torch.flor as flor
-    from repro_torch.checkpoint import CheckpointStore
     from repro_torch.train.step import build_train_step
     from repro_torch.utils.pytree import tree_bytes, tree_leaves
 
@@ -1573,58 +1654,134 @@ def phase_m(torch, dev, hbm_bps) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
     phase_m1(torch, dev, cfg, state.params)
     del state
-    torch.cuda.reset_peak_memory_stats(dev)
-    recorded, walls, lines = mixtral_loop(torch, dev, cfg, init_state,
-                                          train_step, run, "record")
-    for line in lines:
-        say(f"M2 controller {line}")
-    keys = CheckpointStore(os.path.join(run, "store")).list_keys()
-    if keys:
-        fail(f"M2 materialized checkpoints {keys}")
-    rows = [r for r in flor.log_records(run) if r["key"] in M_KEYS]
-    if len(rows) != len(M_KEYS) * M_EPOCHS * M_STEPS or not all(
-            r["value"] == r["value"] for r in rows):
-        fail(f"M2 logged {len(rows)} rows: {rows}")
-    drops = [r["value"] for r in rows if r["key"] == "moe_dropped"]
+    r = record_and_replay(torch, dev, cfg, init_state, train_step, run,
+                          (M_BATCH, M_SEQ, M_EPOCHS, M_STEPS), ("M2", "M3"))
+    rows = r["rows"]
+    drops = [x["value"] for x in rows if x["key"] == "moe_dropped"]
     say(f"M2 record: {M_EPOCHS}x{M_STEPS} steps of {M_BATCH}x{M_SEQ} tokens, "
         f"no checkpoint materialized; loss "
-        f"{[round(r['value'], 4) for r in rows if r['key'] == 'loss']}, "
+        f"{[round(x['value'], 4) for x in rows if x['key'] == 'loss']}, "
         f"moe_dropped {drops}; peak device memory "
-        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
-    wall = statistics.median(walls[1:])
-    say(f"M step wall: {wall:.3f} s (median of steps 2-{len(walls)} of the "
-        f"record; first step {walls[0]:.3f} s)")
-    say(f"M tokens/s: {M_BATCH * M_SEQ / wall:.0f}")
-    host = [x.cpu() for x in tree_leaves(recorded)]
-    del recorded
-    torch.cuda.empty_cache()
-    replayed, r_walls, _ = mixtral_loop(torch, dev, cfg, init_state,
-                                        train_step, run, "replay")
-    rec, reps = flor.run_logs(run)
-    res = flor.deferred_check(rec, reps)
-    want = len(M_KEYS) * M_EPOCHS * M_STEPS
-    if not res.ok or res.compared != want \
-            or res.hindsight_only != M_EPOCHS * M_STEPS:
-        fail(f"M3 deferred check: ok={res.ok} compared={res.compared} "
-             f"hindsight={res.hindsight_only} {res.anomalies[:3]}")
-    leaves = tree_leaves(replayed)
-    if len(leaves) != len(host) or not all(
-            bits_equal(torch, a, b.to(dev)) for a, b in zip(leaves, host)):
-        fail("M3: the replayed final state differs from the recorded one")
-    del host
-    say(f"M3 replay: every epoch re-executed ({len(r_walls)} steps, median "
-        f"{statistics.median(r_walls[1:]):.3f} s), deferred check: ok=True "
-        f"compared={res.compared} hindsight={res.hindsight_only}; final "
-        f"state bit-identical to the recorded one on all {len(leaves)} "
-        f"leaves")
-    return mixtral_fingerprints(torch, dev, hbm_bps, replayed)
+        f"{r['peak_record_gb']:.1f} GB")
+    walls = r["walls"]
+    say(f"M step wall: {r['wall']:.3f} s (median of steps 2-{len(walls)} of "
+        f"the record; first step {walls[0]:.3f} s)")
+    say(f"M tokens/s: {r['tokens_per_s']:.0f}")
+    say(f"M3 replay: every epoch re-executed ({len(r['replay_walls'])} "
+        f"steps, median {statistics.median(r['replay_walls'][1:]):.3f} s), "
+        f"deferred check: ok=True compared={r['compared']} hindsight="
+        f"{r['hindsight']}; final state bit-identical to the recorded one on "
+        f"all {r['leaves']} leaves")
+    return state_fingerprints(torch, dev, hbm_bps, r["state"], "mixtral")
 
 
-def mixtral_fingerprints(torch, dev, hbm_bps, state) -> dict:
-    """#2 and #1 through ``kernels/ops.py`` on every leaf of the mixtral
-    TrainState at the pipeline's 64 KiB chunks, digests and masks bit for
-    bit against the plain versions (``check_fingerprints``), then one pass
-    of each timed beside its bound."""
+# phase F: the families ported last, each at its published widths with its
+# depth cut: (arch, layers, batch, seq, the cut and why). One MoE layer of
+# deepseek-v3 is 256 x 3 x 7168 x 2048 = 11.3 B parameters, ~90 GB with
+# bf16 moments and gradients, over one card: it runs its leading dense
+# layers only, and its MoE stack is empty (zero-byte leaves)
+F_FAMILIES = (
+    ("deepseek-v3-671b", 3, 1, 4096,
+     "3 of 61 layers: the 3 leading dense layers, no MoE layer"),
+    ("falcon-mamba-7b", 2, 1, 4096,
+     "2 of 64 layers (7.3 B f32 parameters with AdamW exceed one card)"),
+    ("zamba2-7b", 6, 1, 4096,
+     "6 of 81 blocks: one group, 5 Mamba2 + the shared attention block, "
+     "no tail (a whole period)"),
+    ("seamless-m4t-large-v2", 4, 2, 4096,
+     "4 + 4 of 24 + 24 encoder + decoder layers"),
+)
+F_EPOCHS, F_STEPS = 2, 2
+
+
+def widths_note(cfg) -> str:
+    """The published widths a family keeps, for its phase F line."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return (f"d_model {cfg.d_model}, {cfg.num_heads} heads, MLA q/kv "
+                f"rank {m.q_lora_rank}/{m.kv_lora_rank}, head "
+                f"{m.qk_nope_head_dim}+{m.qk_rope_head_dim}/{m.v_head_dim}, "
+                f"d_ff {cfg.d_ff}, {param_note(cfg)}")
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        note = (f"d_model {cfg.d_model}, d_inner {s.expand * cfg.d_model}, "
+                f"state {s.state_dim}, conv {s.conv_dim}, chunk {s.chunk}")
+        if s.version == 1:
+            return note + f", dt_rank {s.dt_rank}, {param_note(cfg)}"
+        return (note + f", Mamba2 head {s.head_dim}; shared block "
+                f"{cfg.num_heads} heads of {cfg.resolved_head_dim()}, "
+                f"{cfg.ffn_activation} {cfg.d_ff}, window "
+                f"{cfg.sliding_window}, {param_note(cfg)}")
+    return (f"d_model {cfg.d_model}, {cfg.num_heads} heads of "
+            f"{cfg.resolved_head_dim()}, {cfg.ffn_activation} {cfg.d_ff}, "
+            f"{param_note(cfg)}")
+
+
+def param_note(cfg) -> str:
+    from repro_torch.models.transformer import padded_vocab
+
+    return (f"vocab {cfg.vocab_size} (padded {padded_vocab(cfg)}), "
+            f"{cfg.param_dtype} parameters, {cfg.moment_dtype} moments")
+
+
+def phase_f(torch, dev, hbm_bps) -> dict:
+    """Phase F: each of ``F_FAMILIES`` at its published widths, depth cut,
+    built through ``build_train_step`` on the card: a ``flor.Session``
+    record of ``F_EPOCHS`` x ``F_STEPS`` steps in which the controller
+    declines every checkpoint, a replay that re-executes every epoch with
+    an inner probe (deferred check, final state bit for bit), every
+    gradient norm finite, then #2 and #1 on every leaf of the replayed
+    state against their plain versions. One line per family. Returns
+    {arch: the kernels' pass over its state}."""
+    import repro_torch.configs as C
+    from repro_torch.train.step import build_train_step
+    from repro_torch.utils.pytree import tree_bytes, tree_leaves
+
+    out = {}
+    for arch, layers, batch, seq, cut in F_FAMILIES:
+        tag = f"F {arch}"
+        cfg = C.with_layers(C.get(arch), layers)
+        t0 = time.perf_counter()
+        init_state, train_step = build_train_step(cfg, device=dev)
+        state = init_state(SEED)
+        sync(torch, dev)
+        t_build = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in tree_leaves(state.params))
+        empty = sum(1 for x in tree_leaves(state) if x.numel() == 0)
+        gb = tree_bytes(state) / 1e9
+        del state
+        r = record_and_replay(torch, dev, cfg, init_state, train_step,
+                              os.path.join(WORK, "path_f", arch),
+                              (batch, seq, F_EPOCHS, F_STEPS),
+                              (f"{tag} record", f"{tag} replay"))
+        losses = [round(x["value"], 4) for x in r["rows"]
+                  if x["key"] == "loss"]
+        fp = state_fingerprints(torch, dev, hbm_bps, r.pop("state"), arch)
+        torch.cuda.empty_cache()
+        out[arch] = fp
+        f1, f2 = fp["fingerprint_changed"], fp["fingerprint"]
+        say(f"{tag}: {widths_note(cfg)}; cut: {cut}; {n_params} parameters"
+            f", TrainState {gb:.2f} GB ({r['leaves']} leaves, {empty} of "
+            f"zero bytes), built in {t_build:.2f} s; {batch}x{seq} tokens a "
+            f"step, step wall {r['wall']:.3f} s (median of steps 2-"
+            f"{len(r['walls'])}; first {r['walls'][0]:.3f} s), "
+            f"{r['tokens_per_s']:.0f} tokens/s, peak device memory "
+            f"{r['peak_gb']:.1f} GB; loss {losses}, every gradient norm "
+            f"finite; controller declined {len(r['controller'])} of "
+            f"{F_EPOCHS} epochs; replay: deferred check: ok=True compared="
+            f"{r['compared']} hindsight={r['hindsight']}, final state "
+            f"bit-identical on all {r['leaves']} leaves; #1 {f1['ms']:.4f} "
+            f"ms vs bound {f1['bound_ms']:.4f} ms ({f1['bound_ms'] / f1['ms']:.0%}),"
+            f" #2 {f2['ms']:.4f} ms vs bound {f2['bound_ms']:.4f} ms "
+            f"({f2['bound_ms'] / f2['ms']:.0%}), bit-exact on every leaf")
+    return out
+
+
+def state_fingerprints(torch, dev, hbm_bps, state, label) -> dict:
+    """#2 and #1 through ``kernels/ops.py`` on every leaf of a TrainState at
+    the pipeline's 64 KiB chunks, digests and masks bit for bit against
+    the plain versions (``check_fingerprints``), then one pass of each
+    timed beside its bound."""
     from repro_torch.checkpoint.pipeline import PIPELINE_CHUNK_WORDS as CW
     from repro_torch.checkpoint.pipeline import _fp_view
     from repro_torch.kernels import ops
@@ -1634,13 +1791,14 @@ def mixtral_fingerprints(torch, dev, hbm_bps, state) -> dict:
     for path, x in tree_leaves_with_paths(state):
         v = _fp_view(x)
         views.append(v)
-        prevs.append(check_fingerprints(torch, f"mixtral leaf {path}", v,
+        prevs.append(check_fingerprints(torch, f"{label} leaf {path}", v,
                                         CW)[0])
     rows = sum(p.shape[0] for p in prevs)
     big = max(views, key=lambda v: v.numel() * v.element_size())
     leaf_bytes = sum(v.numel() * v.element_size() for v in views)
     dig_bytes = sum(p.numel() * 4 for p in prevs)
-    words = leaf_bytes // 4
+    words = sum(-(-v.numel() * v.element_size()
+                  // ops.native_bytes_per_word(v.dtype)) for v in views)
     out = {}
     for name, calls, nbytes in (
             ("fingerprint", [lambda v=v: ops.fingerprint_leaf(v, CW)
@@ -1654,7 +1812,7 @@ def mixtral_fingerprints(torch, dev, hbm_bps, state) -> dict:
         out[name] = {"leaves": len(views), "rows": rows,
                      "bytes": leaf_bytes, "ms": t["ms"],
                      "pass_ms": t["pass_ms"], "bound_ms": b, "bound_by": by}
-        say(f"kernel {name} on the mixtral TrainState: {len(views)} leaves, "
+        say(f"kernel {name} on the {label} TrainState: {len(views)} leaves, "
             f"{rows} rows of 64 KiB ({leaf_bytes / 1e9:.2f} GB; the largest "
             f"leaf {big.numel() * big.element_size()} bytes, "
             f"{-(-big.numel() * big.element_size() // (4 * CW))} rows) "
@@ -1699,7 +1857,7 @@ def kernels_line(results: dict, paths: dict) -> list:
                  "pass_ms": r["pass_ms"], "dispatch_us": r["dispatch_us"],
                  "path": path}
         for extra in ("cases", "routes", "small_call_ms", "launch_floor_ms",
-                      "mixtral_pass"):
+                      "mixtral_pass", "family_passes"):
             if extra in r:
                 entry[extra] = r[extra]
         line.append(entry)
@@ -1742,6 +1900,10 @@ def ptxas_report(build_log: dict, names) -> list:
 
 
 def main():
+    # phase F's deepseek-v3 step comes close to the card's memory, and
+    # phase M leaves the caching allocator's segments split before it: let
+    # segments grow in place instead
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1781,6 +1943,11 @@ def main():
         lap("M")
         say("--mixtral-only: stopping after phase M")
         return
+    if "--families-only" in sys.argv[1:]:
+        phase_f(torch, dev, hbm_bps)
+        lap("F")
+        say("--families-only: stopping after phase F")
+        return
     cfg = C.get("florbench-100m")
     results = kernel_phase(torch, dev, hbm_bps, cfg)
     if "--kernels-only" in sys.argv[1:]:
@@ -1795,6 +1962,10 @@ def main():
         results[kname]["mixtral_pass"] = r
     torch.cuda.empty_cache()
     lap("M")
+    for arch, passes in phase_f(torch, dev, hbm_bps).items():
+        for kname, r in passes.items():
+            results[kname].setdefault("family_passes", {})[arch] = r
+    lap("F")
     model_check(torch, dev)
     counts_a, state_a = main_path_a(torch, ops, dev)
     lap("A")

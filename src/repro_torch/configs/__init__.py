@@ -3,10 +3,8 @@
 ``get(name)`` -> full published config; ``get_smoke(name)`` -> reduced
 same-family config for CPU smoke tests.
 
-``ARCHS`` holds the reference registry's architectures whose model family
-the package runs (dense, vlm, moe), in the reference's order; the others
-(falcon-mamba-7b, deepseek-v3-671b, zamba2-7b, seamless-m4t-large-v2)
-arrive with their families (ROADMAP queue 1, item 4).
+``ARCHS`` holds the reference registry's ten architectures in its order;
+``with_layers(cfg, n)`` cuts a config's depth and keeps its widths.
 """
 from __future__ import annotations
 
@@ -28,7 +26,11 @@ ARCHS = [
     "minitron-4b",
     "gemma-2b",
     "qwen3-14b",
+    "falcon-mamba-7b",
+    "deepseek-v3-671b",
     "mixtral-8x7b",
+    "zamba2-7b",
+    "seamless-m4t-large-v2",
     "llava-next-mistral-7b",
 ]
 
@@ -55,3 +57,15 @@ def get_smoke(name: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return list(ARCHS)
+
+
+def with_layers(cfg: ModelConfig, n: int) -> ModelConfig:
+    """``cfg`` cut to ``n`` layers, widths unchanged (the launchers'
+    ``--layers``). An encoder-decoder cuts its encoder and its decoder to
+    ``n`` each. A MoE config keeps its leading dense layers, so at ``n ==
+    first_dense_layers`` its MoE stack has length zero (the reference
+    builds the same tree); a hybrid keeps whole groups of ``attn_period``
+    blocks and a tail of ``n % attn_period``."""
+    if cfg.num_decoder_layers:
+        return cfg.replace(num_layers=n, num_decoder_layers=n)
+    return cfg.replace(num_layers=n)

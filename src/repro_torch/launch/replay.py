@@ -58,7 +58,7 @@ def worker_main(args):
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     if args.layers:
-        cfg = cfg.replace(num_layers=args.layers)
+        cfg = C.with_layers(cfg, args.layers)
     init_state, ts = build_train_step(cfg, device=args.device)
     probed = frozenset(p for p in args.probe.split(",") if p) \
         if args.probe and args.probe != "auto" else frozenset()

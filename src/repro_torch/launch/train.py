@@ -82,7 +82,7 @@ def main(argv=None):
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     if args.layers:
-        cfg = cfg.replace(num_layers=args.layers)
+        cfg = C.with_layers(cfg, args.layers)
     init_state, ts = build_train_step(cfg, device=args.device)
     state = init_state(args.seed)
 

@@ -1,10 +1,13 @@
-"""Model facade: params and loss (the train step's view of a model).
+"""Model facade: params and loss (the train step's view of a model); the
+audio family is the encoder-decoder, every other family the decoder-only
+LM.
 
 Prefill/decode and KV caches are the serving slice's (ROADMAP queue 1,
-item 15)."""
+item 7)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.params import init_params
 
@@ -16,7 +19,8 @@ def build_model(cfg: ModelConfig) -> "Model":
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        self._spec = tfm.lm_param_spec(cfg)
+        self._spec = (encdec_mod.encdec_param_spec(cfg)
+                      if cfg.family == "audio" else tfm.lm_param_spec(cfg))
 
     def param_spec(self):
         return self._spec
@@ -26,4 +30,6 @@ class Model:
         return init_params(self._spec, seed, self.cfg.param_dtype, device)
 
     def loss(self, params, batch):
+        if self.cfg.family == "audio":
+            return encdec_mod.encdec_loss(self.cfg, params, batch)
         return tfm.lm_loss(self.cfg, params, batch)

@@ -9,15 +9,17 @@ Layout conventions (the reference package's):
 
 Both paths are plain tensor ops, as in the reference package, where they
 run outside any Pallas kernel. ``attention_impl="pallas"`` falls through to
-the chunked path there and here. Decode, KV caches and cross-attention
-arrive with the serving and encoder-decoder slices (ROADMAP queue 1).
+the chunked path there and here. ``cross_attention`` is the decoder's view
+of the encoder (no mask, no rope). Decode and KV caches arrive with the
+serving slice (ROADMAP queue 1).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_spec, rms_norm
+from repro_torch.models.layers import (apply_rope, dense_spec, recomputed,
+                                       rms_norm)
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -1e30
@@ -97,31 +99,6 @@ def _chunk_step(q, kc, vc, o, m, l, start, causal, window, scale,
     return o * corr[..., None] + pv, m_new, l
 
 
-class _RecomputedChunk(torch.autograd.Function):
-    """``_chunk_step`` whose backward recomputes the chunk's scores and
-    probabilities instead of saving them; only its inputs stay saved.
-    (``torch.utils.checkpoint`` does the same but keeps the caller's frames,
-    a train step's whole state among them, in a reference cycle until the
-    garbage collector runs.)"""
-
-    @staticmethod
-    def forward(ctx, kw, *inputs):
-        ctx.kw = kw
-        ctx.save_for_backward(*inputs)
-        return _chunk_step(*inputs, **kw)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        inputs = [x.detach().requires_grad_(need) for x, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
-        wrt = [x for x in inputs if x.requires_grad]
-        with torch.enable_grad():
-            outs = _chunk_step(*inputs, **ctx.kw)
-        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
-        return (None, *[next(got) if x.requires_grad else None
-                        for x in inputs])
-
-
 def _chunked_sdpa(q, k, v, causal, window, scale, chunk,
                   probs_dtype=torch.float32, remat_chunk=False):
     """Online-softmax attention, a loop over KV chunks (the reference
@@ -142,8 +119,8 @@ def _chunked_sdpa(q, k, v, causal, window, scale, chunk,
                   probs_dtype=probs_dtype)
         args = (q, k[:, start:start + chunk], v[:, start:start + chunk],
                 o, m, l)
-        if remat_chunk and torch.is_grad_enabled():
-            o, m, l = _RecomputedChunk.apply(kw, *args)
+        if remat_chunk:
+            o, m, l = recomputed(_chunk_step, *args, **kw)
         else:
             o, m, l = _chunk_step(*args, **kw)
     o = o / torch.clamp_min(l[..., None], 1e-30)
@@ -172,3 +149,13 @@ def self_attention(cfg, p, x, *, causal=True, window=None, rope=None):
                                               cfg.attention_probs_dtype),
                           remat_chunk=cfg.attention_remat_chunk)
     return _out_proj(cfg, p, o)
+
+
+def cross_attention(cfg, p, x, enc_out):
+    """Decoder -> encoder attention (no mask, no rope), training path."""
+    scale = 1.0 / np.sqrt(cfg.resolved_head_dim())
+    q = _project_q(cfg, p, x)
+    k, v = _project_kv(cfg, p, enc_out)
+    keep = torch.ones((x.shape[1], enc_out.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    return _out_proj(cfg, p, _sdpa(q, k, v, keep, scale))

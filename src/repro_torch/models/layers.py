@@ -53,6 +53,42 @@ def is_gated(name: str) -> bool:
     return name in ("swiglu", "geglu")
 
 
+# ------------------------------------------------------------- recompute --
+
+class _Recomputed(torch.autograd.Function):
+    """``fn(*inputs, **kw)`` whose backward recomputes ``fn`` instead of
+    keeping its intermediates; only its inputs stay saved.
+    (``torch.utils.checkpoint`` does the same but keeps the caller's frames,
+    a train step's whole state among them, in a reference cycle until the
+    garbage collector runs.)"""
+
+    @staticmethod
+    def forward(ctx, fn, kw, *inputs):
+        ctx.fn, ctx.kw = fn, kw
+        ctx.save_for_backward(*inputs)
+        return fn(*inputs, **kw)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [x.detach().requires_grad_(need) for x, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        wrt = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            outs = ctx.fn(*inputs, **ctx.kw)
+        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+        return (None, None, *[next(got) if x.requires_grad else None
+                              for x in inputs])
+
+
+def recomputed(fn, *inputs, **kw):
+    """``fn(*inputs, **kw)`` (tensors in, a tuple of tensors out), with the
+    backward pass recomputing ``fn`` from the saved inputs: the reference's
+    ``jax.checkpoint`` of a scan body, one chunk at a time."""
+    if torch.is_grad_enabled():
+        return _Recomputed.apply(fn, kw, *inputs)
+    return fn(*inputs, **kw)
+
+
 # ---------------------------------------------------------------- RoPE ----
 
 def rope_freqs(head_dim: int, theta: float):

@@ -1,17 +1,20 @@
-"""Decoder-only LM assembly for the dense, vlm and moe families.
+"""Decoder-only LM assembly for the dense, vlm, moe (with MLA or GQA
+attention), ssm and hybrid families.
 
 Layers stay STACKED on a leading axis (``params["layers"][name]`` is
 [num_layers, ...]), so parameter paths and shapes equal the reference
 package's tree; the forward indexes one layer at a time where the reference
-``lax.scan``s. The loss is sequence-chunked so [B,S,vocab] logits never
-materialize for large-vocab configs. MLA attention and the ssm / hybrid
-families are later slices (ROADMAP queue 1, item 4).
+``lax.scan``s. The hybrid's ``shared_attn`` is one block applied after each
+group of Mamba2 blocks, so its gradient is the sum over its applications,
+in the same order every step. The loss is sequence-chunked so [B,S,vocab]
+logits never materialize for large-vocab configs.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba, mla
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (embed_tokens, embedding_spec,
                                        lm_logits, mlp_apply, mlp_spec,
@@ -25,21 +28,16 @@ def padded_vocab(cfg) -> int:
     return v if v < 512 else padded_vocab_size(v, 512)
 
 
-def _ported_family(cfg):
-    if cfg.family not in ("dense", "vlm", "moe") or cfg.mla is not None:
-        what = "MLA attention" if cfg.mla is not None \
-            else f"family {cfg.family!r}"
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP queue 1, item 4); this "
-            "package runs the dense, vlm and moe families")
-
-
 # ------------------------------------------------------------- blocks -----
+
+def _attn_spec(cfg):
+    return mla.mla_spec(cfg) if cfg.mla else attn.attn_spec(cfg)
+
 
 def dense_block_spec(cfg):
     return {
         "ln1": norm_spec(cfg.d_model),
-        "attn": attn.attn_spec(cfg),
+        "attn": _attn_spec(cfg),
         "ln2": norm_spec(cfg.d_model),
         "mlp": mlp_spec(cfg, cfg.d_ff),
     }
@@ -48,24 +46,37 @@ def dense_block_spec(cfg):
 def moe_block_spec(cfg):
     return {
         "ln1": norm_spec(cfg.d_model),
-        "attn": attn.attn_spec(cfg),
+        "attn": _attn_spec(cfg),
         "ln2": norm_spec(cfg.d_model),
         "moe": moe_mod.moe_spec(cfg),
     }
 
 
+def _attention(cfg, p, x, window, rope):
+    if cfg.mla:
+        return mla.mla_attention(cfg, p, x, rope)
+    return attn.self_attention(cfg, p, x, causal=True, window=window,
+                               rope=rope)
+
+
+def rope_tables_for(cfg, S: int, device):
+    """(cos, sin) tables computed once per forward; None for ssm."""
+    if cfg.family == "ssm":
+        return None
+    dim = cfg.mla.qk_rope_head_dim if cfg.mla else cfg.resolved_head_dim()
+    return rope_tables(S, dim, cfg.rope_theta, device)
+
+
 def dense_block(cfg, p, x, window=None, rope=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.self_attention(cfg, p["attn"], h, causal=True,
-                                window=window, rope=rope)
+    x = x + _attention(cfg, p["attn"], h, window, rope)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + mlp_apply(cfg, p["mlp"], h)
 
 
 def moe_block(cfg, p, x, window=None, rope=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.self_attention(cfg, p["attn"], h, causal=True,
-                                window=window, rope=rope)
+    x = x + _attention(cfg, p["attn"], h, window, rope)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, metrics = moe_mod.moe_apply(cfg, p["moe"], h)
     return x + y, metrics
@@ -81,26 +92,42 @@ def _layer(tree, i: int):
 # -------------------------------------------------------------- specs -----
 
 def lm_param_spec(cfg):
-    _ported_family(cfg)
     pv = padded_vocab(cfg)
     spec = {"embed": embedding_spec(cfg, pv), "ln_f": norm_spec(cfg.d_model)}
     if not cfg.tie_embeddings:
         spec["unembed"] = unembed_spec(cfg, pv)
-    if cfg.family == "moe":
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        spec["layers"] = stack_spec(dense_block_spec(cfg), cfg.num_layers)
+    elif fam == "moe":
         nd = cfg.moe.first_dense_layers
         if nd:
             spec["dense_layers"] = stack_spec(dense_block_spec(cfg), nd)
         spec["layers"] = stack_spec(moe_block_spec(cfg), cfg.num_layers - nd)
+    elif fam == "ssm":
+        spec["layers"] = stack_spec(mamba.mamba1_spec(cfg), cfg.num_layers)
+    elif fam == "hybrid":
+        g, per, tail = _hybrid_shape(cfg)
+        spec["groups"] = stack_spec(stack_spec(mamba.mamba2_spec(cfg), per),
+                                    g)
+        spec["shared_attn"] = dense_block_spec(cfg)
+        if tail:
+            spec["tail"] = stack_spec(mamba.mamba2_spec(cfg), tail)
     else:
-        spec["layers"] = stack_spec(dense_block_spec(cfg), cfg.num_layers)
+        raise ValueError(fam)
     return spec
+
+
+def _hybrid_shape(cfg):
+    """(groups, Mamba2 blocks per group, trailing Mamba2 blocks)."""
+    g = cfg.num_layers // cfg.attn_period
+    return g, cfg.attn_period - 1, cfg.num_layers - g * cfg.attn_period
 
 
 # ------------------------------------------------------------ forward -----
 
 def lm_forward(cfg, params, tokens=None, embeds=None):
     """Returns (final hidden states [B, S_total, d], metrics)."""
-    _ported_family(cfg)
     compute_dtype = getattr(torch, cfg.dtype)
     parts = []
     if embeds is not None:
@@ -109,11 +136,11 @@ def lm_forward(cfg, params, tokens=None, embeds=None):
         parts.append(embed_tokens(cfg, params["embed"]["table"], tokens,
                                   compute_dtype))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    S = x.shape[1]
-    rope = rope_tables(S, cfg.resolved_head_dim(), cfg.rope_theta, x.device)
+    rope = rope_tables_for(cfg, x.shape[1], x.device)
     window = cfg.sliding_window
+    fam = cfg.family
     metrics = {}
-    if cfg.family == "moe":
+    if fam == "moe":
         nd = cfg.moe.first_dense_layers
         for i in range(nd):
             x = dense_block(cfg, _layer(params["dense_layers"], i), x,
@@ -124,8 +151,26 @@ def lm_forward(cfg, params, tokens=None, embeds=None):
                              rope)
             aux.append(m["moe_aux"])
             drop.append(m["moe_dropped"])
-        metrics = {"moe_aux": torch.stack(aux).mean(),
-                   "moe_dropped": torch.stack(drop).mean()}
+        # with no MoE layer (depth cut to the leading dense layers) there is
+        # no router loss to add; the reference's mean over the empty stack
+        # is NaN, and so is its loss (ROADMAP queue 3)
+        if aux:
+            metrics = {"moe_aux": torch.stack(aux).mean(),
+                       "moe_dropped": torch.stack(drop).mean()}
+    elif fam == "ssm":
+        fwd = mamba.mamba1_forward if cfg.ssm.version == 1 \
+            else mamba.mamba2_forward
+        for i in range(cfg.num_layers):
+            x = x + fwd(cfg, _layer(params["layers"], i), x)
+    elif fam == "hybrid":
+        g, per, tail = _hybrid_shape(cfg)
+        for j in range(g):
+            group = _layer(params["groups"], j)
+            for i in range(per):
+                x = x + mamba.mamba2_forward(cfg, _layer(group, i), x)
+            x = dense_block(cfg, params["shared_attn"], x, window, rope)
+        for i in range(tail):
+            x = x + mamba.mamba2_forward(cfg, _layer(params["tail"], i), x)
     else:
         for i in range(cfg.num_layers):
             x = dense_block(cfg, _layer(params["layers"], i), x, window,

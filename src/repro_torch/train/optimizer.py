@@ -39,15 +39,19 @@ def adamw(schedule: Callable, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         c2 = 1.0 - torch.pow(b2, t)
 
         def upd(g, m, v, p):
+            # f32 temporaries are dropped as soon as they are spent: for a
+            # 0.93 B-element leaf each one is 3.7 GB on the card
             g32 = g.float()
             m32 = b1 * m.float() + (1 - b1) * g32
             v32 = b2 * v.float() + (1 - b2) * g32.square()
+            del g32
             step_ = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
+            m_new, v_new = m32.to(mdt), v32.to(mdt)
+            del m32, v32
             p32 = p.float()
             if weight_decay and p.ndim >= 2:   # decay matrices only
                 step_ = step_ + weight_decay * p32
-            return ((p32 - lr * step_).to(p.dtype), m32.to(mdt),
-                    v32.to(mdt))
+            return (p32 - lr * step_).to(p.dtype), m_new, v_new
 
         g_leaves, treedef = tree_flatten(grads)
         out = [upd(g, m, v, p) for g, m, v, p in zip(

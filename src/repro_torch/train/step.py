@@ -72,8 +72,12 @@ def build_train_step(cfg, *, device="cuda", peak_lr=3e-4, warmup=100,
         leaves, treedef = tree_flatten(state.params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         loss, metrics = model.loss(tree_unflatten(treedef, leaves), batch)
-        grads = tree_unflatten(treedef,
-                               list(torch.autograd.grad(loss, leaves)))
+        # a leaf the loss does not read (a zero-length layer stack, as in
+        # a MoE config cut to its leading dense layers) has a zero gradient;
+        # nothing else keeps the raw gradients, so clipping frees them
+        grads = tree_unflatten(treedef, [
+            torch.zeros_like(p) if g is None else g for p, g in zip(
+                leaves, torch.autograd.grad(loss, leaves, allow_unused=True))])
         if grad_clip:
             grads, gnorm = clip_by_global_norm(grads, grad_clip)
         else:

@@ -1,10 +1,12 @@
 """The port's models and train step against the reference package's, from
 the same parameters (initialized by the reference, moved over with
 ``state_from_numpy``) on the same seeded batch, on the CPU, for the smoke
-config of every architecture the port runs: florbench-100m and the six
-dense, vlm and moe configs of ``repro_torch.configs.ARCHS`` (GQA and MQA,
-qk-norm, gelu / swiglu / geglu / relu2, tied and untied embeddings,
-``embed_scale``, the vlm embedding prefix, routed experts with drops).
+config of every architecture the port runs: florbench-100m and the ten
+configs of ``repro_torch.configs.ARCHS`` (GQA and MQA, qk-norm, gelu /
+swiglu / geglu / relu2, tied and untied embeddings, ``embed_scale``, the
+vlm embedding prefix, routed experts with drops, MLA with the sigmoid
+router and shared experts, Mamba1, Mamba2 with the shared attention
+block, the encoder-decoder).
 
 Tolerances, and why:
 - float32 compute (``cfg.replace(dtype="float32")``): loss to rtol 1e-5;
@@ -190,6 +192,52 @@ def test_adamw_update_matches_reference(step):
             ja = np.asarray(ja)
             assert np.abs(a.numpy() - ja).max() \
                 <= OPT_MOMENT_RTOL * np.abs(ja).max()
+
+
+def _bf16_bits(x) -> np.ndarray:
+    """bf16 bit patterns (of a torch tensor or an ml_dtypes array) as
+    int64, so that adjacent bf16 values of one sign differ by 1."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy().astype(np.int64)
+    return np.asarray(x).view(np.int16).astype(np.int64)
+
+
+@pytest.mark.parametrize("step", [0, 50])
+def test_adamw_bf16_storage_matches_reference(step):
+    """deepseek-v3's storage: bf16 parameters and bf16 moments, the update
+    computed in f32 and rounded to bf16 on store, as the reference does.
+    Each stored element within one bf16 step of the reference's (its bit
+    pattern differs by at most 1): the f32 results may differ in their
+    last bits (XLA fuses), which moves a value across a bf16 rounding
+    boundary by one step. Where b1 * m + (1 - b1) * g cancels to near zero
+    those last bits are the whole value, so there the element is held
+    within 1e-6 of its leaf's largest magnitude instead (a few f32 ulps of
+    the operands)."""
+    rs = np.random.default_rng(step)
+    shapes = {"w": (64, 48), "b": (48,)}
+    f = lambda sc, s: rs.normal(0, sc, s).astype(np.float32)
+    p = {k: f(0.02, s) for k, s in shapes.items()}
+    g = {k: f(1e-2, s) for k, s in shapes.items()}
+    m = {k: f(1e-3, s) for k, s in shapes.items()}
+    v = {k: np.abs(f(1e-3, s)) ** 2 for k, s in shapes.items()}
+    sched_args = (1e-3, 10, 100)
+    _, jupdate = jax_adamw(jax_warmup_cosine(*sched_args),
+                           moment_dtype="bfloat16")
+    J = lambda d: {k: jnp.asarray(x, jnp.bfloat16) for k, x in d.items()}
+    jp, jst = jax.jit(jupdate)(J(g), JaxAdamWState(J(m), J(v)), J(p),
+                               jnp.int32(step))
+    _, update = adamw(warmup_cosine(*sched_args), moment_dtype="bfloat16")
+    T = lambda d: {k: torch.from_numpy(x).bfloat16() for k, x in d.items()}
+    tp, tst = update(T(g), AdamWState(T(m), T(v)), T(p),
+                     torch.tensor(step, dtype=torch.int32))
+    for k in shapes:
+        for a, ja in ((tp[k], jp[k]), (tst.mu[k], jst.mu[k]),
+                      (tst.nu[k], jst.nu[k])):
+            assert a.dtype == torch.bfloat16 and ja.dtype == jnp.bfloat16
+            steps = np.abs(_bf16_bits(a) - _bf16_bits(ja))
+            diff = np.abs(a.float().numpy() - np.asarray(ja, np.float32))
+            scale = float(np.abs(np.asarray(ja, np.float32)).max())
+            assert np.all((steps <= 1) | (diff <= 1e-6 * scale))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -250,18 +250,40 @@ def test_moe_store_restores_across_packages(tmp_path, recorder):
         assert np.array_equal(g_t, w) and np.array_equal(g_j, w)
 
 
+# the four families and archs the port refused until it had their modules
+REFUSED = {"ssm": "falcon-mamba-7b", "mla": "deepseek-v3-671b",
+           "hybrid": "zamba2-7b", "audio": "seamless-m4t-large-v2"}
+
+
+def _spec_shapes(spec):
+    return jax.tree_util.tree_map(lambda s: (tuple(s.shape), tuple(s.axes)),
+                                  spec, is_leaf=lambda s: hasattr(s, "axes"))
+
+
 @pytest.mark.parametrize("family", ["ssm", "hybrid", "audio", "mla"])
 def test_unported_families_raise(family):
-    cfg = C.get_smoke("florbench-100m")
-    cfg = cfg.replace(mla=JC.get_smoke("deepseek-v3-671b").mla) \
-        if family == "mla" else cfg.replace(family=family)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        build_model(cfg)
+    """Named for what these families did before the port had their
+    modules: they raised. Each now builds the reference's parameter tree
+    (paths, shapes, logical axes) from its smoke config; a family that
+    neither package knows still raises ValueError, as in the reference."""
+    cfg = JC.get_smoke(REFUSED[family])
+    assert (cfg.mla is not None) if family == "mla" else cfg.family == family
+    assert _spec_shapes(build_model(cfg).param_spec()) \
+        == _spec_shapes(jax_build_model(cfg).param_spec())
+    with pytest.raises(ValueError, match="unknown"):
+        build_model(cfg.replace(family="unknown"))
 
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "deepseek-v3-671b",
                                   "zamba2-7b", "seamless-m4t-large-v2"])
 def test_unported_archs_are_unknown(arch):
-    assert arch in JC.ARCHS and arch not in C.ARCHS
+    """Named for what these archs were before their families were ported:
+    unknown to the port. Each is now in ``ARCHS`` at the reference
+    registry's position, and its full and smoke configs equal the
+    reference's field for field; a name neither registry has still raises
+    KeyError."""
+    assert C.ARCHS == JC.ARCHS and arch in C.ARCHS
+    for get, jget in ((C.get, JC.get), (C.get_smoke, JC.get_smoke)):
+        assert dataclasses.asdict(get(arch)) == dataclasses.asdict(jget(arch))
     with pytest.raises(KeyError):
-        C.get_smoke(arch)
+        C.get_smoke(arch + "-unknown")
