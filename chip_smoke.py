@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--kernels-only | --mixtral-only | --families-only]
+    python3 chip_smoke.py [--kernels-only | --mixtral-only | --families-only
+                           | --serve-only | --handsfree-only]
 
 Run from a checkout on a machine with one NVIDIA H100. Phases:
 
@@ -74,42 +75,67 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    their plain versions; one line per family (widths, cut, parameters,
    state GB, step wall, tokens/s, peak device memory, controller, replay,
    #1/#2 against their bound);
-5. a small-input model check: the same weights on the CPU and the card
+5. phase S, serving (``repro_torch.serve.step``) with qwen3-14b at its
+   published widths and full depth (40 layers, 14.8 B f32 parameters made
+   on the card from the seed): S1 in f32 with TF32 off at batch 1, a
+   decode step after a 512-token prefill against the 513-token prefill's
+   logits (within ``S_TOL`` of the largest) and ``greedy_generate``'s first
+   token against the prefill argmax; S2 in the config's bf16 compute, 8
+   prompts of 2048 tokens and 32 greedy tokens timed step by step
+   (prefill wall and tokens/s, the decode step's median and tokens/s
+   beside its bound, the parameters read once; the cache's GB and the
+   peak device memory), then ``greedy_generate`` again: the same tokens
+   bit for bit; S3 each family's cache path at phase F's cuts
+   (``S3_FAMILIES``: mixtral-8x7b's ring past its window, deepseek-v3's
+   latent cache, falcon-mamba-7b's and zamba2-7b's states with the
+   group's shared-attention cache, seamless-m4t-large-v2's cross K/V):
+   S1's check, then a 16-token bf16 generate twice, bit-identical; one
+   ``S <arch>`` line each;
+6. phase H, hands-free mode: a training script with no Flor call but
+   ``flor.log`` (``H_SCRIPT``, florbench-100m's smoke widths on the card,
+   3 epochs x 2 steps) runs through ``flor.exec_instrumented``: record with
+   the controller off (its inner loop instrumented with the changeset
+   ``["state", "metrics"]``, every epoch checkpointed through #1/#2),
+   ``detect_probes`` against a copy with a probe in the inner loop, a
+   replay with it (deferred check: ok, 6 hindsight rows), and a replay
+   with no probe that restores every epoch and ends on the recorded state
+   bit for bit;
+7. a small-input model check: the same weights on the CPU and the card
    give the same loss;
-6. main path A: ``repro_torch.launch.train.main`` at the full
+8. main path A: ``repro_torch.launch.train.main`` at the full
    florbench-100m width (batch 8, seq 512, 2 epochs x 3 steps, every epoch
    checkpointed) into the shared store ``build/chip_smoke/store`` as run
    ``A``, then a restore of ``A::train@1.0`` that must equal the live state
    bit for bit;
-7. replay R2: ``python -m repro_torch.launch.replay --probe train
+9. replay R2: ``python -m repro_torch.launch.replay --probe train
    --nworkers 2 --check`` over path A's run on the card (the run dir's
    ``flor.run.json`` leads it to the shared store): two worker processes
    share the card, and the deferred check must pass at its own rtol 1e-4
    with one hindsight row per step;
-8. replay R1: ``flor.Session(mode="replay")`` over path A's run with no
+10. replay R1: ``flor.Session(mode="replay")`` over path A's run with no
    probed block: every epoch restored onto the card (seconds and GB/s per
    restore), an outer probe logging the embedding norm, and the final
    state equal to the recorded one bit for bit; its kernel launches are
    counted as a path's (the restore path runs none);
-9. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps:
+11. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps:
    a full checkpoint, then a delta that inherits the full one's quantized
    chunks) with ``RecordSpec(ckpt_error_bounds={"mu": 1e-2, "nu": 1e-3},
    ckpt_overlap=True)``; the restore of the delta through that lossy chain
    holds ``mu``/``nu`` within their bounds, every other leaf bit for bit. At these bounds the selector stores every
    moment chunk as q4, so the q8 kernel does not run here;
-10. main path C: the same Session with tight bounds
+12. main path C: the same Session with tight bounds
    (``TIGHT_BOUNDS``, 1 epoch x 3 steps), at which the selector splits
    the moment chunks between q4, q8 and raw, checked as in B;
-11. the lineage paths run florbench-100m at full width cut to 2 of its 12
+13. the lineage paths run florbench-100m at full width cut to 2 of its 12
    layers (``LIN_LAYERS``), which shrinks each of their restores and
    checkpoints 2.8x; path A2: the launcher records their parent, run
    ``A2`` (1 epoch x 3 steps, ``--layers 2``) into the shared store;
-12. path W: the launcher derives run ``W`` from ``A2`` (``--parent-run
+14. path W: the launcher derives run ``W`` from ``A2`` (``--parent-run
    A2``, 1 epoch x 3 steps): the warm start must seed from
    ``A2::train@0.0``, the first checkpoint must be a delta on it (its
    transferred bytes and changed chunks printed); the warm-start restore's
    seconds and GB/s are printed;
-13. path W2: a ``flor.Session`` derived from ``A2`` warm-starts onto the
+15. path W2: a ``flor.Session`` derived from ``A2`` warm-starts onto the
    card (the fingerprint kernel must launch once per leaf), changes one
    leaf (``params.ln_f``) and checkpoints: a delta on ``A2::train@0.0``
    moving no more than that leaf's chunk and under 5% of the logical bytes,
@@ -117,25 +143,26 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    warm start without ``like``) must move to the card at the first compare:
    the fused kernel on every leaf of ``params`` plus ``step`` and ``rng``,
    and only ``ln_f``'s chunk flagged;
-14. replay R3: ``flor.Session(mode="replay")`` over run W: the warm start
+16. replay R3: ``flor.Session(mode="replay")`` over run W: the warm start
    restores through A2's chunks from the key W persisted, the epoch from
    W's checkpoint, and the final state must equal W's live state bit for
    bit (the restore check of path W);
-15. path Q: over the shared store, ``flor.log_records`` from the sqlite
+17. path Q: over the shared store, ``flor.log_records`` from the sqlite
    index must equal the file scan row for row (R1's probe rows included),
    ``flor.pivot(..., "loss")`` must hold A's two epochs, A2's one and W's
    one, ``lineage="W"`` must hold A2's and W's rows only, and ``python -m
    repro_torch.launch.runs list|show|diff|logs|pivot`` must exit 0 (their
    output printed); query walls printed;
-16. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
-   paths A, R1, B, C, A2, W, W2 and R3 and their passes over the mixtral
+18. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
+   paths A, R1, B, C, A2, W, W2, R3 and H and their passes over the mixtral
    state and phase F's four states, outside that count; for the four
    ``ops`` kernels, the launches of their own phase),
    the card line, and last the JSON line ``{"ok": true, "device":
    {...}}``.
 
 ``--kernels-only`` stops after phase 2, ``--mixtral-only`` runs phase M
-alone after the build, ``--families-only`` phase F alone. Any failed
+alone after the build, ``--families-only`` phase F alone, ``--serve-only``
+phase S alone and ``--handsfree-only`` phase H alone. Any failed
 phase exits non-zero before the last line is printed. The run directories live under ``build/chip_smoke``
 (git-ignored) and are removed at the end.
 """
@@ -1822,6 +1849,357 @@ def state_fingerprints(torch, dev, hbm_bps, state, label) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- serve --
+# phase S: qwen3-14b at its published widths and full depth (40 layers,
+# 14.8 B f32 parameters, 59.1 GB). S1: f32 consistency at batch 1; S2: the
+# config's bf16 compute, 8 prompts of 2048 tokens, 32 greedy tokens each
+S_ARCH = "qwen3-14b"
+S1_PROMPT = 512
+S2_BATCH, S2_PROMPT, S2_STEPS = 8, 2048, 32
+# decode(prefill(x), t) against prefill(x + t): the reference test's atol
+# (tests/test_models.py), here of the logits' largest magnitude
+S_TOL = 2e-3
+# S3: each family's cache path at phase F's cuts: (arch, layers, prompt
+# tokens of the decoder, the cache it exercises)
+S3_FAMILIES = (
+    ("mixtral-8x7b", 1, 4608, "SWA ring cache, the prompt past the 4096 "
+     "window so the ring wraps"),
+    ("deepseek-v3-671b", 3, 2048, "MLA latent cache (3 leading dense "
+     "layers)"),
+    ("falcon-mamba-7b", 2, 2048, "Mamba1 conv + scan state"),
+    ("zamba2-7b", 6, 2048, "Mamba2 states + the group's shared-attention "
+     "cache"),
+    ("seamless-m4t-large-v2", 4, 2048, "self-attention cache + static "
+     "cross K/V (4 + 4 layers)"),
+)
+S3_STEPS = 16
+
+
+def f32_serving(cfg):
+    """``cfg`` in f32 compute; a MoE config at capacity factor 8, so no
+    token is dropped and the prompt and a step route alike (as
+    tests/test_models.py runs its decode check)."""
+    import dataclasses
+
+    cfg = cfg.replace(dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=8.0))
+    return cfg
+
+
+def prompt_batch(cfg, batch: int, prompt: int, step: int = 0) -> dict:
+    """A seeded prompt batch; ``prompt`` is the decoder's length (an
+    encoder-decoder gets as many encoder frames)."""
+    from repro_torch.data import synthetic_batch
+
+    return synthetic_batch(cfg, batch, 2 * prompt if cfg.family == "audio"
+                           else prompt, step, SEED)
+
+
+def start_pos(cfg, batch: dict) -> int:
+    """The position after the prompt (greedy_generate's start)."""
+    if cfg.family == "audio":
+        return batch["dec_tokens"].shape[1]
+    return batch["tokens"].shape[1] + (cfg.frontend_tokens
+                                       if cfg.family == "vlm" else 0)
+
+
+def serve_consistency(torch, dev, cfg, params, batch, tag) -> float:
+    """decode(prefill(x), t) against prefill(x + t), f32 with TF32 off:
+    returns max |diff| over the logits' largest magnitude; fails past
+    ``S_TOL``."""
+    import numpy as np
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+
+    key = "dec_tokens" if cfg.family == "audio" else "tokens"
+    pos = start_pos(cfg, batch)
+    B = batch[key].shape[0]
+    caches, _ = build_prefill_step(cfg, pos + 8)(params, batch)
+    tok = torch.full((B, 1), 7, dtype=torch.int32, device=dev)
+    _, got, caches = build_decode_step(cfg)(params, caches, tok, pos)
+    del caches
+    longer = dict(batch)
+    longer[key] = np.concatenate([batch[key], np.full((B, 1), 7, np.int32)],
+                                 axis=1)
+    _, want = build_prefill_step(cfg, pos + 9)(params, longer)
+    err = float((got.double() - want.double()).abs().max()
+                / want.double().abs().max())
+    if not err <= S_TOL:
+        fail(f"{tag}: decode after prefill differs from the longer "
+             f"prefill by {err:.3e} of the largest logit (tol {S_TOL})")
+    return err
+
+
+def generate_twice(torch, dev, cfg, params, batch, steps) -> tuple:
+    """``greedy_generate`` twice on the same prompts: the tokens must match
+    bit for bit. Returns (tokens, wall of each run)."""
+    from repro_torch.serve.step import greedy_generate
+
+    outs, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs.append(greedy_generate(cfg, params, batch, steps,
+                                    start_pos(cfg, batch) + steps))
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+    if not torch.equal(outs[0], outs[1]):
+        fail(f"{cfg.name}: greedy_generate gave different tokens on the "
+             f"same prompts")
+    return outs[0], walls
+
+
+def device_profile(torch, fn, top: int = 4):
+    """One call of ``fn`` under ``torch.profiler``: (its result, the card's
+    busy ms (the device rows' durations, summed), the device activities
+    launched, the ``top`` kernels by summed time as (name, ms))."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+            n += 1
+    busy = sum(by_name.values()) / 1e3
+    if not busy > 0:
+        fail("torch.profiler recorded no device time for a serving call")
+    tops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return out, busy, n, [(name[:48], t / 1e3) for name, t in tops]
+
+
+def profile_note(busy, n, tops, wall_ms) -> str:
+    return (f"device busy {busy:.2f} ms of a {wall_ms:.2f} ms wall "
+            f"({busy / wall_ms:.0%}; idle {1 - busy / wall_ms:.0%}), {n} "
+            f"device activities; top: " + "; ".join(
+                f"{name} {t:.2f} ms" for name, t in tops))
+
+
+def allocator_line(torch, dev) -> str:
+    free, total = torch.cuda.mem_get_info(dev)
+    return (f"allocated {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB, "
+            f"reserved {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB, "
+            f"free {free / 1e9:.2f} of {total / 1e9:.2f} GB")
+
+
+def phase_s(torch, dev, hbm_bps):
+    """Phase S: the serving path (``repro_torch.serve.step``) on the card.
+    S1: qwen3-14b at full width and depth in f32, TF32 off, batch 1: a
+    decode step after a 512-token prefill gives the logits of the
+    513-token prefill within ``S_TOL``; greedy_generate's first token is
+    the prefill's argmax. S2: the config's bf16 compute, 8 prompts of 2048
+    tokens, 32 greedy tokens, timed step by step through the step
+    builders, then again through ``greedy_generate``: the same tokens bit
+    for bit. S3: each family's cache path at phase F's cuts, S1's check
+    and a 16-token bf16 generate twice, bit-identical."""
+    import repro_torch.configs as C
+    from repro_torch.models import build_model
+    from repro_torch.serve.step import (build_decode_step,
+                                        build_prefill_step)
+    from repro_torch.train.step import batch_to_device
+    from repro_torch.utils.pytree import tree_bytes, tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"S: device memory before the phase: {allocator_line(torch, dev)}")
+    cfg = C.get(S_ARCH)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(SEED, dev)
+    sync(torch, dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    p_bytes = tree_bytes(params)
+    say(f"S: {S_ARCH}, {cfg.num_layers} layers (full depth), d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV of "
+        f"{cfg.resolved_head_dim()}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}: {n_params} {cfg.param_dtype} parameters "
+        f"({p_bytes / 1e9:.2f} GB), made on the card in "
+        f"{time.perf_counter() - t0:.2f} s; {allocator_line(torch, dev)}")
+
+    # S1: f32 consistency at batch 1
+    from repro_torch.serve.step import greedy_generate
+    cfg32 = f32_serving(cfg)
+    b1 = prompt_batch(cfg, 1, S1_PROMPT)
+    err = serve_consistency(torch, dev, cfg32, params, b1, "S1")
+    _, logits = build_prefill_step(cfg32, S1_PROMPT + 2)(params, b1)
+    first = greedy_generate(cfg32, params, b1, 2, S1_PROMPT + 2)[:, 0]
+    if not torch.equal(first, logits.argmax(-1).to(first.dtype)):
+        fail(f"S1: greedy_generate's first token {first.tolist()} is not "
+             f"the prefill argmax {logits.argmax(-1).tolist()}")
+    say(f"S1 {S_ARCH} f32, TF32 off, batch 1, {S1_PROMPT}-token prompt: "
+        f"decode(prefill(x), t) vs prefill(x + t) max diff {err:.3e} of the "
+        f"largest logit (tol {S_TOL}); greedy_generate's first token "
+        f"{first.tolist()} = the prefill argmax")
+    del logits
+    torch.cuda.empty_cache()
+
+    # S2: throughput in the config's bf16 compute
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = prompt_batch(cfg, S2_BATCH, S2_PROMPT)
+    max_len = S2_PROMPT + S2_STEPS
+    prefill = build_prefill_step(cfg, max_len)
+    decode = build_decode_step(cfg)
+    tb = batch_to_device(batch, dev)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    caches, logits = prefill(params, tb)
+    sync(torch, dev)
+    t_prefill = time.perf_counter() - t0
+    cache_gb = tree_bytes(caches) / 1e9
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    toks, walls = [tok], []
+    for i in range(S2_STEPS - 1):
+        t0 = time.perf_counter()
+        tok, _, caches = decode(params, caches, tok, S2_PROMPT + i)
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+        toks.append(tok)
+    tokens = torch.cat(toks, dim=1)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    step = statistics.median(walls)
+    # where a step's time goes: one more step (at the last free position)
+    # and then one prefill, each under the profiler; outputs unused
+    _, d_busy, d_n, d_top = device_profile(torch, lambda: decode(
+        params, caches, tok, max_len - 1))
+    del caches, logits
+    _, p_busy, p_n, p_top = device_profile(torch, lambda: prefill(params,
+                                                                  tb))
+    again, g_walls = generate_twice(torch, dev, cfg, params, batch,
+                                    S2_STEPS)
+    if not torch.equal(tokens, again):
+        fail("S2: greedy_generate's tokens differ from the step-by-step "
+             "run's")
+    b_ms = p_bytes / hbm_bps * 1e3
+    say(f"S2 {S_ARCH} bf16 compute ({cfg.param_dtype} parameters), "
+        f"{S2_BATCH} prompts x {S2_PROMPT} tokens, {S2_STEPS} greedy tokens "
+        f"each: prefill {t_prefill:.3f} s ({S2_BATCH * S2_PROMPT / t_prefill:.0f}"
+        f" tokens/s); decode step median {step * 1e3:.2f} ms (min "
+        f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}; "
+        f"{S2_BATCH / step:.1f} tokens/s); bound {b_ms:.2f} ms (the "
+        f"{p_bytes / 1e9:.2f} GB of parameters read once at "
+        f"{hbm_bps / 1e12:.2f} TB/s), the step at {b_ms / (step * 1e3):.0%} "
+        f"of it; cache {cache_gb:.2f} GB; peak device memory {peak:.2f} GB; "
+        f"greedy_generate twice ({g_walls[0]:.2f} s, {g_walls[1]:.2f} s): "
+        f"the same {tuple(tokens.shape)} tokens bit for bit")
+    say(f"S2 profile, decode step: "
+        f"{profile_note(d_busy, d_n, d_top, step * 1e3)}")
+    say(f"S2 profile, prefill: "
+        f"{profile_note(p_busy, p_n, p_top, t_prefill * 1e3)}")
+    del params
+    torch.cuda.empty_cache()
+
+    # S3: every family's cache path at phase F's cuts
+    for arch, layers, prompt, what in S3_FAMILIES:
+        cfg = C.with_layers(C.get(arch), layers)
+        params = build_model(cfg).init(SEED, dev)
+        b = prompt_batch(cfg, 1, prompt)
+        err = serve_consistency(torch, dev, f32_serving(cfg), params, b,
+                                f"S {arch}")
+        toks, g_walls = generate_twice(torch, dev, cfg, params, b,
+                                      S3_STEPS)
+        say(f"S {arch}: {layers} layers, {what}; f32 batch 1, "
+            f"{prompt}-token prompt: decode vs longer prefill max diff "
+            f"{err:.3e} of the largest logit (tol {S_TOL}); {cfg.dtype} "
+            f"generate of {S3_STEPS} tokens twice ({g_walls[0]:.2f} s, "
+            f"{g_walls[1]:.2f} s), bit-identical: {toks[0].tolist()}")
+        del params
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ hands-free --
+# phase H: an un-instrumented training script run through the script tier
+# (``flor.exec_instrumented``), modelled on the reference's
+# tests/test_record_replay.py; florbench-100m at its smoke widths
+H_SCRIPT = """\
+import repro_torch.configs as C
+from repro_torch.data import synthetic_batch
+from repro_torch.train.step import build_train_step
+cfg = C.get_smoke('florbench-100m')
+init_state, ts = build_train_step(cfg, device={device!r})
+state = init_state(0)
+metrics = {{}}
+for epoch in range(3):
+    for s in range(2):
+        batch = synthetic_batch(cfg, 2, 64, epoch * 2 + s)
+        state, metrics = ts(state, batch)
+    flor.log('loss', metrics['loss'])
+"""
+H_PROBE = "\n        flor.log('probe', metrics['grad_norm'])"
+
+
+def phase_h(torch, ops, dev) -> dict:
+    """Phase H: record the script instrumented (the controller off, so
+    every epoch checkpoints through #1/#2), detect the probe an edited copy
+    adds, replay with it (deferred check: ok, 6 hindsight rows), then
+    replay with no probe (every epoch skipped and restored) and end on the
+    recorded state bit for bit. Returns the record's kernel launches."""
+    import repro_torch.flor as flor
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.utils.pytree import tree_leaves
+
+    work = os.path.join(WORK, "path_h")
+    os.makedirs(work)
+    run = os.path.join(work, "run")
+    script = os.path.join(work, "train_script.py")
+    src = H_SCRIPT.format(device=str(torch.device(dev)))
+    with open(script, "w") as f:
+        f.write(src)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ns, report = flor.exec_instrumented(script, run_dir=run, mode="record",
+                                        adaptive=False)
+    sync(torch, dev)
+    t_record = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if list(report.instrumented.values()) != [["state", "metrics"]]:
+        fail(f"H: instrumented {report.instrumented}, refused "
+             f"{report.refused}")
+    recorded = [x.cpu() for x in tree_leaves(ns["state"])]
+    store = CheckpointStore(os.path.join(run, "store"))
+    keys = store.list_keys()
+    if len(keys) != 3:
+        fail(f"H: record wrote checkpoints {keys}, expected 3")
+    probed_src = src.replace("state, metrics = ts(state, batch)",
+                             "state, metrics = ts(state, batch)" + H_PROBE)
+    probed = os.path.join(work, "probed.py")
+    with open(probed, "w") as f:
+        f.write(probed_src)
+    rep = flor.detect_probes(store.get_meta("source")["src"], probed_src)
+    t0 = time.perf_counter()
+    flor.exec_instrumented(probed, run_dir=run, mode="replay",
+                           probed=rep.probed_blocks)
+    t_probe = time.perf_counter() - t0
+    res = flor.deferred_check(*flor.run_logs(run))
+    if not res.ok or res.hindsight_only != 6:
+        fail(f"H deferred check: ok={res.ok} compared={res.compared} "
+             f"hindsight={res.hindsight_only} {res.anomalies[:3]}")
+    t0 = time.perf_counter()
+    ns2, _ = flor.exec_instrumented(script, run_dir=run, mode="replay")
+    t_skip = time.perf_counter() - t0
+    got = tree_leaves(ns2["state"])
+    if len(got) != len(recorded) or not all(
+            bits_equal(torch, a.cpu(), b) for a, b in zip(got, recorded)):
+        fail("H: the no-probe replay's final state differs from the "
+             "recorded one")
+    say(f"H: exec_instrumented record on {torch.device(dev)}, florbench-100m "
+        f"smoke widths, 3 x 2 steps in {t_record:.2f} s: inner loop "
+        f"{list(report.instrumented)} instrumented with changeset "
+        f"{list(report.instrumented.values())[0]}, main loop(s) "
+        f"{report.main_loops}, {len(keys)} checkpoints; detect_probes: "
+        f"{sorted(rep.probed_blocks)}; probed replay {t_probe:.2f} s, "
+        f"deferred check: ok=True compared={res.compared} "
+        f"hindsight={res.hindsight_only}; no-probe replay {t_skip:.2f} s, "
+        f"every epoch restored, final state bit-identical on all "
+        f"{len(got)} leaves")
+    for k in ("fingerprint", "fingerprint_changed"):
+        if torch.device(dev).type == "cuda" and not counts.get(k):
+            fail(f"H: kernel {k} never launched in the record")
+    return counts
+
+
 # ------------------------------------------------------------------ main --
 # kernel -> (CUDA source, the TPU kernel it replaces, its path); "record"
 # kernels must have launched on paths A-C and A2-R3, "ops" kernels report the
@@ -1948,6 +2326,16 @@ def main():
         lap("F")
         say("--families-only: stopping after phase F")
         return
+    if "--serve-only" in sys.argv[1:]:
+        phase_s(torch, dev, hbm_bps)
+        lap("S")
+        say("--serve-only: stopping after phase S")
+        return
+    if "--handsfree-only" in sys.argv[1:]:
+        say(f"launches path H: {json.dumps(phase_h(torch, ops, dev))}")
+        lap("H")
+        say("--handsfree-only: stopping after phase H")
+        return
     cfg = C.get("florbench-100m")
     results = kernel_phase(torch, dev, hbm_bps, cfg)
     if "--kernels-only" in sys.argv[1:]:
@@ -1966,6 +2354,12 @@ def main():
         for kname, r in passes.items():
             results[kname].setdefault("family_passes", {})[arch] = r
     lap("F")
+    torch.cuda.empty_cache()
+    phase_s(torch, dev, hbm_bps)
+    torch.cuda.empty_cache()
+    lap("S")
+    counts_h = phase_h(torch, ops, dev)
+    lap("H")
     model_check(torch, dev)
     counts_a, state_a = main_path_a(torch, ops, dev)
     lap("A")
@@ -1993,7 +2387,7 @@ def main():
     lap("Q")
     paths = {"A": counts_a, "R1": counts_r1, "B": counts_b, "C": counts_c,
              "A2": counts_a2, "W": counts_w, "W2": counts_w2,
-             "R3": counts_r3}
+             "R3": counts_r3, "H": counts_h}
     for tag, counts in paths.items():
         say(f"launches path {tag}: {json.dumps(counts)}")
     say(json.dumps({"kernels": kernels_line(results, paths)}))

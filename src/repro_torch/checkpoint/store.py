@@ -72,7 +72,8 @@ import torch
 
 from repro_torch.utils.codec import Compressor, pack_obj, unpack_obj
 from repro_torch.utils.pytree import (keystr, tree_flatten,
-                                      tree_flatten_with_path, tree_unflatten)
+                                      tree_flatten_with_path, tree_graft,
+                                      tree_unflatten)
 
 CHUNK = 4 * 1024 * 1024
 
@@ -532,12 +533,23 @@ class CheckpointStore:
                                      leaf["dtype"]))
         if like is not None:
             flat, treedef = tree_flatten(like)
-            if len(flat) != len(arrays):
-                raise ValueError(f"structure mismatch: like has {len(flat)} "
-                                 f"leaves, checkpoint {len(arrays)}")
-            arrays = [a.to(lk.device) if isinstance(lk, torch.Tensor) else a
-                      for lk, a in zip(flat, arrays)]
-            return tree_unflatten(treedef, arrays)
+            if len(flat) == len(arrays):
+                arrays = [a.to(lk.device) if isinstance(lk, torch.Tensor)
+                          else a for lk, a in zip(flat, arrays)]
+                return tree_unflatten(treedef, arrays)
+            # an empty dict of `like` (a script-tier changeset variable
+            # still at its first value `{}`) takes the dicts the checkpoint
+            # holds at its path, on the device of `like`'s tensors
+            dev = next((x.device for x in flat
+                        if isinstance(x, torch.Tensor)), None)
+            try:
+                return tree_graft(like, {leaf["path"]: a for leaf, a in
+                                         zip(manifest["leaves"], arrays)},
+                                  dev)
+            except (KeyError, ValueError):
+                raise ValueError(f"structure mismatch: like has {len(flat)}"
+                                 f" leaves, checkpoint {len(arrays)}") \
+                    from None
         return {leaf["path"]: a for leaf, a in zip(manifest["leaves"], arrays)}
 
     def has(self, key: str) -> bool:

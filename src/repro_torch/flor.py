@@ -61,15 +61,33 @@ otherwise; the two paths return identical rows. From the shell:
 ``python -m repro_torch.launch.runs list|show|gc|rm|diff|logs|pivot|reindex
 --store-root ...``.
 
+Hands-free mode (paper section 3, the script tier): ``import flor`` is the
+only change to a training script. ``flor.exec_instrumented(path, run_dir=,
+mode=)`` rewrites the script's AST (``flor.instrument_source``): the main
+loop's iterator goes through ``flor.loop``, and each nested loop whose
+changeset the Table-1 rules can estimate (``flor.analyze_loop``) becomes a
+named ``flor.loop`` inside a ``flor.checkpointing`` scope over that
+changeset. The un-instrumented source is kept in store meta, so
+``flor.detect_probes`` and ``flor.build_plan(probed="auto")`` diff it
+against an edited copy.
+
+Legacy surface: ``flor.init/finish/generator/skipblock`` keep working as
+thin shims but warn with ``FlorDeprecationWarning``.
+
 Mesh-sharded and multi-process runs are later slices (ROADMAP queue 1,
 items 12-13) and raise NotImplementedError.
 """
 from __future__ import annotations
 
+from repro_torch.core.changeset import (  # noqa: F401
+    analyze_loop, augment_changeset, outer_assignments, register_augmenter)
 from repro_torch.core.context import (  # noqa: F401
-    FlorContext, FlorDeprecationWarning, get_context)
+    FlorContext, FlorDeprecationWarning, finish, get_context, init)
 from repro_torch.core.fingerprint import deferred_check, run_logs  # noqa: F401
-from repro_torch.core.generator import sampling_generator  # noqa: F401
+from repro_torch.core.generator import (generator, partition,  # noqa: F401
+                                        sampling_generator)
+from repro_torch.core.instrument import (  # noqa: F401
+    exec_instrumented, instrument_source)
 from repro_torch.core.probes import detect_probes  # noqa: F401
 from repro_torch.core.query import (log_records,  # noqa: F401
                                     merge_replay_logs, pivot)
@@ -78,6 +96,7 @@ from repro_torch.core.session import (  # noqa: F401
     checkpointing, executed, loop)
 from repro_torch.logging import FingerprintLog, FlorLogValueWarning  # noqa: F401
 from repro_torch.querydb import reindex  # noqa: F401
+from repro_torch.core.skipblock import skipblock  # noqa: F401
 from repro_torch.replay import ReplayPlan, build_plan  # noqa: F401
 
 
@@ -100,6 +119,18 @@ def warm_start(block_id: str = "train", like=None):
     `like` (each tensor on its `like` leaf's device) when given, else a
     flat {path: CPU tensor} dict."""
     return get_context().warm_start(block_id, like=like)
+
+
+def augment(namespace_subset: dict, namespace: dict) -> dict:
+    """Script-tier helper: apply framework-knowledge augmentation to a
+    changeset dict (``core/instrument.py`` emits calls to this)."""
+    names = list(namespace_subset)
+    extra = augment_changeset(names, namespace)
+    out = dict(namespace_subset)
+    for n in extra:
+        if n not in out and n in namespace:
+            out[n] = namespace[n]
+    return out
 
 
 def current_epoch():

@@ -1,15 +1,26 @@
-"""Model facade: params and loss (the train step's view of a model); the
-audio family is the encoder-decoder, every other family the decoder-only
-LM.
+"""Model facade: params, loss, prefill/decode and decode caches; the audio
+family is the encoder-decoder, every other family the decoder-only LM.
 
-Prefill/decode and KV caches are the serving slice's (ROADMAP queue 1,
-item 7)."""
+A cache spec is a nested dict of ``(torch.Size, dtype)`` leaves with the
+reference package's leaf names and nesting (``layers``, ``dense_layers``,
+``groups``, ``shared_attn``, ``tail``; ``k``/``v``/``slot_pos``,
+``c_kv``/``k_r``, ``conv``/``ssm``; ``self``/``cross_k``/``cross_v``),
+each stack of layers on a leading axis as the reference stacks them."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import mamba
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import cache_from_spec, stack_cache_spec
 from repro_torch.models.params import init_params
+
+# encoder length of the enc-dec decode cells (about 30 s of audio frames
+# after the frontend's subsampling; the frontend itself is a stub)
+ENC_LEN_DECODE = 1536
 
 
 def build_model(cfg: ModelConfig) -> "Model":
@@ -33,3 +44,56 @@ class Model:
         if self.cfg.family == "audio":
             return encdec_mod.encdec_loss(self.cfg, params, batch)
         return tfm.lm_loss(self.cfg, params, batch)
+
+    # ----------------------------------------------------------- serving --
+    def prefill(self, params, batch, max_len: int):
+        """(caches holding ``max_len`` positions, last-position logits)."""
+        if self.cfg.family == "audio":
+            return encdec_mod.encdec_prefill(self.cfg, params, batch,
+                                             max_len)
+        return tfm.lm_prefill(self.cfg, params, batch, max_len)
+
+    def decode(self, params, caches, tokens, pos):
+        """One step: tokens [B,1] at position ``pos`` (an int or a 0-d
+        tensor). Returns (logits [B, vocab_size], new caches)."""
+        if self.cfg.family == "audio":
+            return encdec_mod.encdec_decode(self.cfg, params, caches, tokens,
+                                            int(pos))
+        return tfm.lm_decode(self.cfg, params, caches, tokens, int(pos))
+
+    def cache_spec(self, batch: int, max_len: int):
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        fam = cfg.family
+        if fam == "audio":
+            return encdec_mod.encdec_cache_spec(cfg, batch, max_len,
+                                                ENC_LEN_DECODE, dtype)
+        if fam in ("dense", "vlm"):
+            return {"layers": stack_cache_spec(
+                tfm.attn_cache_spec(cfg, batch, max_len, dtype),
+                cfg.num_layers)}
+        if fam == "moe":
+            one = tfm.attn_cache_spec(cfg, batch, max_len, dtype)
+            nd = cfg.moe.first_dense_layers
+            out = {"layers": stack_cache_spec(one, cfg.num_layers - nd)}
+            if nd:
+                out["dense_layers"] = stack_cache_spec(one, nd)
+            return out
+        if fam == "ssm":
+            return {"layers": stack_cache_spec(
+                tfm.mamba_cache_spec(cfg, batch, dtype), cfg.num_layers)}
+        if fam == "hybrid":
+            g, per, tail = tfm._hybrid_shape(cfg)
+            m = mamba.mamba2_cache_spec(cfg, batch, dtype)
+            out = {"groups": stack_cache_spec(stack_cache_spec(m, per), g),
+                   "shared_attn": stack_cache_spec(
+                       attn.init_cache_spec(cfg, batch, max_len, dtype), g)}
+            if tail:
+                out["tail"] = stack_cache_spec(m, tail)
+            return out
+        raise ValueError(fam)
+
+    def init_cache(self, batch: int, max_len: int, device):
+        """Empty caches on ``device``: ``slot_pos`` -1, the rest zeros."""
+        return cache_from_spec(self.cache_spec(batch, max_len),
+                               torch.device(device))

@@ -10,16 +10,23 @@ Layout conventions (the reference package's):
 Both paths are plain tensor ops, as in the reference package, where they
 run outside any Pallas kernel. ``attention_impl="pallas"`` falls through to
 the chunked path there and here. ``cross_attention`` is the decoder's view
-of the encoder (no mask, no rope). Decode and KV caches arrive with the
-serving slice (ROADMAP queue 1).
+of the encoder (no mask, no rope).
+
+Serving: one layer's KV cache is ``{"k", "v": [B, Smax, KV, hd],
+"slot_pos": [Smax]}``, ``slot_pos`` holding the absolute position in each
+slot (-1 = empty). With a sliding window, Smax = min(max_len, window) and
+the cache is a ring: position p lives in slot p % Smax, which bounds its
+memory at any context length. Decode scores in f32 over the cache cast to
+f32, as the reference does; the cache itself stays in the compute dtype.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models.layers import (apply_rope, dense_spec, recomputed,
-                                       rms_norm)
+from repro_torch.models.layers import (apply_rope, cache_from_spec,
+                                       dense_spec, recomputed, rms_norm)
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -1e30
@@ -159,3 +166,85 @@ def cross_attention(cfg, p, x, enc_out):
     keep = torch.ones((x.shape[1], enc_out.shape[1]), dtype=torch.bool,
                       device=x.device)
     return _out_proj(cfg, p, _sdpa(q, k, v, keep, scale))
+
+
+# ------------------------------------------------------------- decode -----
+
+def _mask(q_pos, k_pos, causal: bool, window):
+    """[..., Sq, Sk] boolean keep-mask from absolute positions; a key at
+    position -1 (an empty cache slot) is never kept."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    keep = kp >= 0
+    if causal:
+        keep = keep & (kp <= qp)
+    if window is not None:
+        keep = keep & ((qp - kp) < window)
+    return keep
+
+
+def _cache_len(cfg, max_len: int) -> int:
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+
+
+def init_cache_spec(cfg, batch: int, max_len: int, dtype):
+    """One layer's KV cache as {name: (torch.Size, dtype)}, window-bounded
+    with a sliding window."""
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim()
+    smax = _cache_len(cfg, max_len)
+    return {"k": (torch.Size((batch, smax, KV, hd)), dtype),
+            "v": (torch.Size((batch, smax, KV, hd)), dtype),
+            "slot_pos": (torch.Size((smax,)), torch.int32)}
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, device):
+    """An empty cache: zeros, every slot at position -1."""
+    return cache_from_spec(init_cache_spec(cfg, batch, max_len, dtype),
+                           device)
+
+
+def decode_attention(cfg, p, x, cache, pos: int, rope):
+    """One-token decode. x [B,1,d]; ``pos`` the token's position (the same
+    across the batch), ``rope`` its (cos, sin) row, made once a step for
+    every layer. Writes the token's K/V into slot ``pos % Smax`` of
+    ``cache`` in place and attends over the slots the mask keeps. Returns
+    (out [B,1,d], cache)."""
+    scale = 1.0 / np.sqrt(cfg.resolved_head_dim())
+    q = apply_rope(_project_q(cfg, p, x), rope)              # [B,1,KV,G,hd]
+    k, v = _project_kv(cfg, p, x)                            # [B,1,KV,hd]
+    k = apply_rope(k, rope)
+    ck, cv, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+    slot = pos % ck.shape[1]
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    slot_pos[slot] = pos
+    keep = _mask(torch.full((1,), pos, dtype=torch.int32, device=x.device),
+                 slot_pos, True, cfg.sliding_window)         # [1, Smax]
+    s = torch.einsum("bqngh,bknh->bngqk", q.float(), ck.float()) * scale
+    w = torch.softmax(s.masked_fill(~keep, NEG_INF), dim=-1)
+    o = torch.einsum("bngqk,bknh->bqngh", w, cv.float()).to(x.dtype)
+    return _out_proj(cfg, p, o), cache
+
+
+def prefill_cache(cfg, p, x, max_len: int, dtype, rope):
+    """K/V of a whole prompt laid into a fresh cache, so decode continues
+    at position S. When the prompt fills the cache (S >= Smax) it keeps the
+    last Smax positions, each in its ring slot."""
+    k, v = _project_kv(cfg, p, x)
+    k = apply_rope(k, rope)
+    S = x.shape[1]
+    smax = _cache_len(cfg, max_len)
+    if S >= smax:
+        tail_pos = torch.arange(S - smax, S, device=x.device)
+        order = torch.argsort(tail_pos % smax)
+        ck = k[:, S - smax:][:, order].to(dtype)
+        cv = v[:, S - smax:][:, order].to(dtype)
+        slot_pos = tail_pos[order]
+    else:
+        pad = smax - S
+        ck = F.pad(k, (0, 0, 0, 0, 0, pad)).to(dtype)
+        cv = F.pad(v, (0, 0, 0, 0, 0, pad)).to(dtype)
+        slot_pos = torch.cat([torch.arange(S, device=x.device),
+                              torch.full((pad,), -1, device=x.device)])
+    return {"k": ck, "v": cv, "slot_pos": slot_pos.to(torch.int32)}

@@ -53,6 +53,40 @@ def is_gated(name: str) -> bool:
     return name in ("swiglu", "geglu")
 
 
+# -------------------------------------------------------------- caches --
+# A decode cache spec is a nested dict of (torch.Size, dtype) leaves; a
+# stack of layers carries a leading layer axis, as the parameters do.
+
+def stack_cache_spec(spec, n: int):
+    """``spec`` with a leading layer axis of length ``n``."""
+    if isinstance(spec, dict):
+        return {k: stack_cache_spec(v, n) for k, v in spec.items()}
+    shape, dtype = spec
+    return torch.Size((n, *shape)), dtype
+
+
+def cache_from_spec(spec, device, name: str = ""):
+    """An empty cache of ``spec``'s shapes: ``slot_pos`` leaves hold -1 (no
+    position), every other leaf zeros."""
+    if isinstance(spec, dict):
+        return {k: cache_from_spec(v, device, k) for k, v in spec.items()}
+    shape, dtype = spec
+    return torch.full(shape, -1 if name == "slot_pos" else 0, dtype=dtype,
+                      device=device)
+
+
+def empty_stack(spec, n: int, device):
+    """An empty cache for ``n`` layers of one layer's ``spec`` (zero-size
+    leaves when ``n`` is 0)."""
+    return cache_from_spec(stack_cache_spec(spec, n), device)
+
+
+def write_layer(stack, i, cache):
+    """Copy one layer's ``cache`` into row ``i`` of a stacked cache."""
+    for k, v in cache.items():
+        stack[k][i].copy_(v)
+
+
 # ------------------------------------------------------------- recompute --
 
 class _Recomputed(torch.autograd.Function):
@@ -97,10 +131,27 @@ def rope_freqs(head_dim: int, theta: float):
                             / head_dim))
 
 
-def rope_tables(S: int, head_dim: int, theta: float, device):
-    """cos/sin tables [S, half] (f32), computed once per forward."""
-    freqs = torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
-    ang = torch.arange(S, dtype=torch.float32, device=device)[:, None] * freqs
+_FREQS: dict = {}
+
+
+def _device_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """``rope_freqs`` on ``device``, copied there once per (head_dim,
+    theta, device): a copy from pageable host memory waits for the stream,
+    which would stall every decode step."""
+    key = (head_dim, float(theta), torch.device(device))
+    if key not in _FREQS:
+        with torch.inference_mode(False):      # a plain tensor, usable anywhere
+            _FREQS[key] = torch.from_numpy(
+                rope_freqs(head_dim, theta)).to(device)
+    return _FREQS[key]
+
+
+def rope_tables(S: int, head_dim: int, theta: float, device, start: int = 0):
+    """cos/sin tables [S, half] (f32) of positions start .. start+S-1,
+    computed once per forward (a decode step's one row at its position)."""
+    freqs = _device_freqs(head_dim, theta, device)
+    ang = torch.arange(start, start + S, dtype=torch.float32,
+                       device=device)[:, None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -15,8 +15,13 @@ is not XLA's, so outputs agree with the reference to rounding, not bit
 for bit. Every op here is a matmul, an elementwise op, a slice or a
 concatenation: no atomics and no cuDNN convolution (the depthwise causal
 conv is a sum of shifted products, as in the reference), so a step gives
-the same bits each time it runs. The decode step and its caches come with
-the serving slice (ROADMAP queue 1).
+the same bits each time it runs.
+
+Serving: with ``return_cache=True`` a forward also returns the block's
+decode cache, ``{"conv": the last conv_dim - 1 inputs of the causal conv
+(oldest first), "ssm": the scan state after the last token (f32)}``, both
+carried out of the chunk loop as fresh tensors (neither keeps a chunk's
+intermediates alive). A decode step is one O(1) update of that state.
 """
 from __future__ import annotations
 
@@ -40,6 +45,23 @@ def _causal_conv(x, w, b):
         xs = x if shift == 0 else F.pad(x, (0, 0, shift, 0))[:, :x.shape[1]]
         out = out + xs * w[k].to(x.dtype)
     return out + b.to(x.dtype)
+
+
+def _conv_step(x_t, conv_state, w, b):
+    """Single-token conv. x_t [B,C]; conv_state [B,K-1,C] (oldest first).
+    Returns (out [B,C], the next conv state)."""
+    win = torch.cat([conv_state, x_t[:, None]], dim=1)          # [B,K,C]
+    out = torch.einsum("bkc,kc->bc", win, w.to(x_t.dtype)) + b.to(x_t.dtype)
+    return out, win[:, 1:]
+
+
+def _conv_tail(pre_conv, K):
+    """The last K-1 pre-conv inputs (left zero-padded when S < K-1), as a
+    copy: a slice would keep the whole in_proj output alive."""
+    S = pre_conv.shape[1]
+    if S >= K - 1:
+        return pre_conv[:, S - (K - 1):].clone()
+    return F.pad(pre_conv, (0, 0, K - 1 - S, 0))
 
 
 def _pad_chunks(x, q):
@@ -151,16 +173,60 @@ def _mamba1_inner(cfg, p, x1, z, return_state=False):
     return y.to(x1.dtype)
 
 
-def mamba1_forward(cfg, p, x):
+def mamba1_forward(cfg, p, x, return_cache=False):
     """Full-sequence Mamba1 block (norm -> in_proj -> conv -> scan ->
-    out_proj); the residual add is the caller's."""
+    out_proj); the residual add is the caller's. ``return_cache`` also
+    returns the decode cache after the last token."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     xz = torch.einsum("bsd,dc->bsc", h, p["in_proj"].to(x.dtype))
     din = xz.shape[-1] // 2
-    x1, z = xz[..., :din], xz[..., din:]
-    x1 = F.silu(_causal_conv(x1, p["conv_w"], p["conv_b"]))
+    pre_conv, z = xz[..., :din], xz[..., din:]
+    x1 = F.silu(_causal_conv(pre_conv, p["conv_w"], p["conv_b"]))
+    if return_cache:
+        y, hst = _mamba1_inner(cfg, p, x1, z, return_state=True)
+        out = torch.einsum("bsc,cd->bsd", y, p["out_proj"].to(x.dtype))
+        return out, {"conv": _conv_tail(pre_conv, cfg.ssm.conv_dim),
+                     "ssm": hst}
     y = _mamba1_inner(cfg, p, x1, z)
     return torch.einsum("bsc,cd->bsd", y, p["out_proj"].to(x.dtype))
+
+
+def mamba1_cache_spec(cfg, batch: int, dtype):
+    s = cfg.ssm
+    din = s.expand * cfg.d_model
+    return {"conv": (torch.Size((batch, s.conv_dim - 1, din)), dtype),
+            "ssm": (torch.Size((batch, din, s.state_dim)), torch.float32)}
+
+
+def mamba1_decode(cfg, p, x, cache):
+    """x [B,1,d] -> (out [B,1,d], cache): one O(1) state update, written
+    into ``cache`` in place."""
+    s = cfg.ssm
+    N = s.state_dim
+    dtr = s.dt_rank or -(-cfg.d_model // 16)
+    h = rms_norm(x, p["norm"], cfg.norm_eps)[:, 0]               # [B,d]
+    xz = torch.einsum("bd,dc->bc", h, p["in_proj"].to(x.dtype))
+    din = xz.shape[-1] // 2
+    x1, z = xz[..., :din], xz[..., din:]
+    x1, conv_state = _conv_step(x1, cache["conv"].to(x1.dtype),
+                                p["conv_w"], p["conv_b"])
+    x1 = F.silu(x1)
+    dbc = torch.einsum("bc,cr->br", x1, p["x_proj"].to(x1.dtype))
+    dt = F.softplus(
+        torch.einsum("br,rc->bc", dbc[..., :dtr],
+                     p["dt_proj"].to(x1.dtype)).float()
+        + p["dt_bias"].float())                                  # [B,din]
+    Bc = dbc[..., dtr:dtr + N].float()
+    Cc = dbc[..., dtr + N:].float()
+    A = -torch.exp(p["A_log"].float())
+    hst = torch.exp(dt[..., None] * A) * cache["ssm"] \
+        + (dt * x1.float())[..., None] * Bc[:, None, :]
+    y = torch.einsum("bcn,bn->bc", hst, Cc) + x1.float() * p["D"].float()
+    y = y * F.silu(z.float())
+    out = torch.einsum("bc,cd->bd", y.to(x.dtype), p["out_proj"].to(x.dtype))
+    cache["conv"].copy_(conv_state)
+    cache["ssm"].copy_(hst)
+    return out[:, None], cache
 
 
 # ------------------------------------------------------------ Mamba 2 -----
@@ -266,12 +332,59 @@ def _mamba2_inner(cfg, p, xbc, z, dt_raw, return_state=False):
     return y
 
 
-def mamba2_forward(cfg, p, x):
-    """Full-sequence Mamba2 block; the residual add is the caller's."""
+def mamba2_forward(cfg, p, x, return_cache=False):
+    """Full-sequence Mamba2 block; the residual add is the caller's.
+    ``return_cache`` also returns the decode cache after the last token."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     zxbcdt = torch.einsum("bsd,dc->bsc", h, p["in_proj"].to(x.dtype))
-    z, xbc, dt = _mamba2_split(cfg, zxbcdt)
-    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    z, pre_conv, dt = _mamba2_split(cfg, zxbcdt)
+    xbc = F.silu(_causal_conv(pre_conv, p["conv_w"], p["conv_b"]))
+    if return_cache:
+        y, hst = _mamba2_inner(cfg, p, xbc, z, dt, return_state=True)
+        out = torch.einsum("bsc,cd->bsd", y.to(x.dtype),
+                           p["out_proj"].to(x.dtype))
+        return out, {"conv": _conv_tail(pre_conv, cfg.ssm.conv_dim),
+                     "ssm": hst}
     y = _mamba2_inner(cfg, p, xbc, z, dt)
     return torch.einsum("bsc,cd->bsd", y.to(x.dtype),
                         p["out_proj"].to(x.dtype))
+
+
+def mamba2_cache_spec(cfg, batch: int, dtype):
+    s = cfg.ssm
+    din = s.expand * cfg.d_model
+    nh = din // s.head_dim
+    return {"conv": (torch.Size((batch, s.conv_dim - 1,
+                                 din + 2 * s.state_dim)), dtype),
+            "ssm": (torch.Size((batch, nh, s.head_dim, s.state_dim)),
+                    torch.float32)}
+
+
+def mamba2_decode(cfg, p, x, cache):
+    """x [B,1,d] -> (out [B,1,d], cache): one O(1) SSD state update,
+    written into ``cache`` in place."""
+    s = cfg.ssm
+    din = s.expand * cfg.d_model
+    N = s.state_dim
+    nh = din // s.head_dim
+    h = rms_norm(x, p["norm"], cfg.norm_eps)[:, 0]
+    zxbcdt = torch.einsum("bd,dc->bc", h, p["in_proj"].to(x.dtype))
+    z, xbc, dt_raw = _mamba2_split(cfg, zxbcdt)
+    xbc, conv_state = _conv_step(xbc, cache["conv"].to(xbc.dtype),
+                                 p["conv_w"], p["conv_b"])
+    xbc = F.silu(xbc)
+    x1 = xbc[..., :din].float().reshape(-1, nh, s.head_dim)
+    Bc = xbc[..., din:din + N].float()
+    Cc = xbc[..., din + N:].float()
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())       # [B,nh]
+    A = -torch.exp(p["A_log"].float())
+    hst = torch.exp(dt * A)[:, :, None, None] * cache["ssm"] \
+        + torch.einsum("bn,bhp,bh->bhpn", Bc, x1, dt)
+    y = torch.einsum("bhpn,bn->bhp", hst, Cc) \
+        + x1 * p["D"].float()[:, None]
+    y = y.reshape(-1, din) * F.silu(z.float())
+    y = rms_norm(y, p["gate_norm"], cfg.norm_eps, dtype=torch.float32)
+    out = torch.einsum("bc,cd->bd", y.to(x.dtype), p["out_proj"].to(x.dtype))
+    cache["conv"].copy_(conv_state)
+    cache["ssm"].copy_(hst)
+    return out[:, None], cache

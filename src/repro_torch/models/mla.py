@@ -6,8 +6,14 @@ chunked online softmax of ``models/attention.py`` runs over heads of width
 ``qk_nope_head_dim + qk_rope_head_dim`` (128 + 64 = 192 at full width), one
 head per KV group. The rope key ``k_r`` is shared by every head; values
 (128 wide) are zero-padded to the q/k width and sliced after, as in the
-reference. The absorbed-form decode and its compressed latent cache come
-with the serving slice (ROADMAP queue 1).
+reference.
+
+Decode uses the ABSORBED form: the cache holds only the compressed latent
+``c_kv`` [B, max_len, kv_lora_rank] and the shared rope key ``k_r`` [B,
+max_len, qk_rope_head_dim] (512 + 64 wide at full width, against 2 x 128
+heads x 192 for expanded K/V), indexed by position (no ring). W_uk is
+folded into the query, the scores run over the latent plus the rope key,
+and W_uv is applied to the attended latent.
 """
 from __future__ import annotations
 
@@ -15,8 +21,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.attention import _chunked_sdpa
-from repro_torch.models.layers import apply_rope, dense_spec, rms_norm
+from repro_torch.models.attention import NEG_INF, _chunked_sdpa, _mask
+from repro_torch.models.layers import (apply_rope, cache_from_spec,
+                                       dense_spec, rms_norm)
 from repro_torch.models.params import ParamSpec
 
 
@@ -79,3 +86,64 @@ def mla_attention(cfg, p, x, rope):
                       remat_chunk=cfg.attention_remat_chunk)
     o = o.reshape(B, S, H, qk_hd)[..., :m.v_head_dim]
     return torch.einsum("bsnh,nhd->bsd", o, p["wo"].to(x.dtype))
+
+
+# ------------------------------------------------------------- decode -----
+
+def mla_cache_spec(cfg, batch: int, max_len: int, dtype):
+    m = cfg.mla
+    return {
+        "c_kv": (torch.Size((batch, max_len, m.kv_lora_rank)), dtype),
+        "k_r": (torch.Size((batch, max_len, m.qk_rope_head_dim)), dtype),
+        "slot_pos": (torch.Size((max_len,)), torch.int32),
+    }
+
+
+def mla_init_cache(cfg, batch: int, max_len: int, dtype, device):
+    return cache_from_spec(mla_cache_spec(cfg, batch, max_len, dtype),
+                           device)
+
+
+def mla_decode(cfg, p, x, cache, pos: int, rope):
+    """Absorbed-form one-token decode against the latent cache: writes the
+    token's latent and rope key at row ``pos`` of ``cache`` in place;
+    ``rope`` is the position's (cos, sin) row. Returns (out [B,1,d],
+    cache)."""
+    m = cfg.mla
+    scale = 1.0 / np.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope, c_kv_new, k_r_new = _latents(cfg, p, x, rope)
+    ckv, kr, slot_pos = cache["c_kv"], cache["k_r"], cache["slot_pos"]
+    ckv[:, pos] = c_kv_new[:, 0].to(ckv.dtype)
+    kr[:, pos] = k_r_new[:, 0].to(kr.dtype)
+    slot_pos[pos] = pos
+    # absorb W_uk into q: q_abs [B,1,H,r_kv]
+    q_abs = torch.einsum("bqnh,rnh->bqnr", q_nope, p["w_uk"].to(x.dtype))
+    s = (torch.einsum("bqnr,bkr->bnqk", q_abs.float(), ckv.float())
+         + torch.einsum("bqnh,bkh->bnqk", q_rope.float(), kr.float())) \
+        * scale
+    keep = _mask(torch.full((1,), pos, dtype=torch.int32, device=x.device),
+                 slot_pos, True, None)
+    w = torch.softmax(s.masked_fill(~keep, NEG_INF), dim=-1)
+    ctx = torch.einsum("bnqk,bkr->bqnr", w, ckv.float())
+    o = torch.einsum("bqnr,rnh->bqnh", ctx.to(x.dtype),
+                     p["w_uv"].to(x.dtype))
+    out = torch.einsum("bqnh,nhd->bqd", o, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def mla_prefill_cache(cfg, p, x, max_len: int, dtype, rope):
+    """The prompt's latents and rope keys in rows 0..S-1 of a fresh
+    cache."""
+    c_kv = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(x.dtype)),
+                    p["kv_ln"], cfg.norm_eps)
+    k_r = apply_rope(torch.einsum("bsd,dr->bsr", x, p["w_kr"].to(x.dtype)),
+                     rope)
+    S = x.shape[1]
+    pad = max_len - S
+    return {
+        "c_kv": F.pad(c_kv, (0, 0, 0, pad)).to(dtype),
+        "k_r": F.pad(k_r, (0, 0, 0, pad)).to(dtype),
+        "slot_pos": torch.cat([
+            torch.arange(S, dtype=torch.int32, device=x.device),
+            torch.full((pad,), -1, dtype=torch.int32, device=x.device)]),
+    }

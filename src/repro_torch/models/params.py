@@ -78,6 +78,7 @@ def init_params(tree, seed: int, default_dtype: str, device) -> dict:
             raise ValueError(f"unknown init {spec.init!r}")
         x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                         device=device)
-        return (std * x).to(dtype)
+        # scaled in place: one f32 buffer per leaf at its peak, not two
+        return x.mul_(std).to(dtype)
 
     return _map_specs(make, tree)

@@ -8,6 +8,13 @@ package's tree; the forward indexes one layer at a time where the reference
 group of Mamba2 blocks, so its gradient is the sum over its applications,
 in the same order every step. The loss is sequence-chunked so [B,S,vocab]
 logits never materialize for large-vocab configs.
+
+Serving: ``lm_prefill`` runs a prompt through every layer and lays each
+layer's decode cache into a stack preallocated from its spec (one row per
+layer, zero-size leaves for a stack of no layers); it returns the last
+position's logits only. ``lm_decode`` copies the stacks once and writes
+the new token into the copy layer by layer, so the caches it was given are
+left as they were.
 """
 from __future__ import annotations
 
@@ -17,9 +24,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba, mla
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (embed_tokens, embedding_spec,
-                                       lm_logits, mlp_apply, mlp_spec,
-                                       norm_spec, padded_vocab_size,
-                                       rms_norm, rope_tables, unembed_spec)
+                                       empty_stack, lm_logits, mlp_apply,
+                                       mlp_spec, norm_spec,
+                                       padded_vocab_size, rms_norm,
+                                       rope_tables, stack_cache_spec,
+                                       unembed_spec, write_layer)
 from repro_torch.models.params import stack_spec
 
 
@@ -59,12 +68,13 @@ def _attention(cfg, p, x, window, rope):
                                rope=rope)
 
 
-def rope_tables_for(cfg, S: int, device):
-    """(cos, sin) tables computed once per forward; None for ssm."""
+def rope_tables_for(cfg, S: int, device, start: int = 0):
+    """(cos, sin) tables of positions start .. start+S-1, computed once per
+    forward or decode step; None for ssm."""
     if cfg.family == "ssm":
         return None
     dim = cfg.mla.qk_rope_head_dim if cfg.mla else cfg.resolved_head_dim()
-    return rope_tables(S, dim, cfg.rope_theta, device)
+    return rope_tables(S, dim, cfg.rope_theta, device, start)
 
 
 def dense_block(cfg, p, x, window=None, rope=None):
@@ -126,8 +136,9 @@ def _hybrid_shape(cfg):
 
 # ------------------------------------------------------------ forward -----
 
-def lm_forward(cfg, params, tokens=None, embeds=None):
-    """Returns (final hidden states [B, S_total, d], metrics)."""
+def _embed_inputs(cfg, params, tokens, embeds):
+    """The input sequence in the compute dtype: the vlm's embedding prefix
+    (if any) followed by the token embeddings."""
     compute_dtype = getattr(torch, cfg.dtype)
     parts = []
     if embeds is not None:
@@ -135,7 +146,12 @@ def lm_forward(cfg, params, tokens=None, embeds=None):
     if tokens is not None:
         parts.append(embed_tokens(cfg, params["embed"]["table"], tokens,
                                   compute_dtype))
-    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def lm_forward(cfg, params, tokens=None, embeds=None):
+    """Returns (final hidden states [B, S_total, d], metrics)."""
+    x = _embed_inputs(cfg, params, tokens, embeds)
     rope = rope_tables_for(cfg, x.shape[1], x.device)
     window = cfg.sliding_window
     fam = cfg.family
@@ -230,3 +246,177 @@ def lm_loss(cfg, params, batch):
         loss = loss + cfg.moe.router_aux_loss * metrics["moe_aux"]
     metrics["loss"] = loss
     return loss, metrics
+
+
+# ---------------------------------------------------- prefill / decode ----
+
+def attn_cache_spec(cfg, batch: int, max_len: int, dtype):
+    """One attention layer's decode cache: MLA's latent cache or the KV
+    cache (a ring under a sliding window)."""
+    if cfg.mla:
+        return mla.mla_cache_spec(cfg, batch, max_len, dtype)
+    return attn.init_cache_spec(cfg, batch, max_len, dtype)
+
+
+def mamba_cache_spec(cfg, batch: int, dtype):
+    if cfg.ssm.version == 1:
+        return mamba.mamba1_cache_spec(cfg, batch, dtype)
+    return mamba.mamba2_cache_spec(cfg, batch, dtype)
+
+
+def _depth(tree) -> int:
+    """Length of the leading (layer) axis of a stacked tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _attn_prefill(cfg, p, x, max_len, dtype, window, rope):
+    """Run one attention block AND emit its primed cache."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.mla:
+        out = mla.mla_attention(cfg, p["attn"], h, rope)
+        cache = mla.mla_prefill_cache(cfg, p["attn"], h, max_len, dtype,
+                                      rope)
+    else:
+        out = attn.self_attention(cfg, p["attn"], h, causal=True,
+                                  window=window, rope=rope)
+        cache = attn.prefill_cache(cfg, p["attn"], h, max_len, dtype, rope)
+    x = x + out
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        y, _ = moe_mod.moe_apply(cfg, p["moe"], h)
+    else:
+        y = mlp_apply(cfg, p["mlp"], h)
+    return x + y, cache
+
+
+def _mamba_prefill(cfg, p, x):
+    """Mamba block forward + its cache after the last token."""
+    fwd = mamba.mamba1_forward if cfg.ssm.version == 1 \
+        else mamba.mamba2_forward
+    out, cache = fwd(cfg, p, x, return_cache=True)
+    return x + out, cache
+
+
+def lm_prefill(cfg, params, batch, max_len: int):
+    """Consume a prompt; return (primed caches, the last position's logits
+    [B, vocab_size]). Caches hold ``max_len`` positions (the window, if
+    smaller), in the compute dtype; Mamba states in f32."""
+    dtype = getattr(torch, cfg.dtype)
+    x = _embed_inputs(cfg, params, batch.get("tokens"), batch.get("embeds"))
+    B, S = x.shape[:2]
+    dev = x.device
+    rope = rope_tables_for(cfg, S, dev)
+    window = cfg.sliding_window
+    fam = cfg.family
+    caches = {}
+    if fam in ("dense", "vlm", "moe"):
+        spec = attn_cache_spec(cfg, B, max_len, dtype)
+        for name in ("dense_layers", "layers"):
+            if name not in params:
+                continue
+            n = _depth(params[name])
+            caches[name] = empty_stack(spec, n, dev)
+            for i in range(n):
+                x, c = _attn_prefill(cfg, _layer(params[name], i), x,
+                                     max_len, dtype, window, rope)
+                write_layer(caches[name], i, c)
+    elif fam == "ssm":
+        caches["layers"] = empty_stack(mamba_cache_spec(cfg, B, dtype),
+                                       cfg.num_layers, dev)
+        for i in range(cfg.num_layers):
+            x, c = _mamba_prefill(cfg, _layer(params["layers"], i), x)
+            write_layer(caches["layers"], i, c)
+    elif fam == "hybrid":
+        g, per, tail = _hybrid_shape(cfg)
+        mspec = mamba.mamba2_cache_spec(cfg, B, dtype)
+        caches["groups"] = empty_stack(stack_cache_spec(mspec, per), g, dev)
+        caches["shared_attn"] = empty_stack(
+            attn.init_cache_spec(cfg, B, max_len, dtype), g, dev)
+        for j in range(g):
+            group, gcache = _layer(params["groups"], j), \
+                _layer(caches["groups"], j)
+            for i in range(per):
+                x, c = _mamba_prefill(cfg, _layer(group, i), x)
+                write_layer(gcache, i, c)
+            x, c = _attn_prefill(cfg, params["shared_attn"], x, max_len,
+                                 dtype, window, rope)
+            write_layer(caches["shared_attn"], j, c)
+        if tail:
+            caches["tail"] = empty_stack(mspec, tail, dev)
+            for i in range(tail):
+                x, c = _mamba_prefill(cfg, _layer(params["tail"], i), x)
+                write_layer(caches["tail"], i, c)
+    else:
+        raise ValueError(fam)
+    x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
+    logits = lm_logits(cfg, params, x, padded_vocab(cfg))
+    return caches, logits[:, 0, :cfg.vocab_size]
+
+
+def _attn_decode_block(cfg, p, x, cache, pos, rope):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.mla:
+        out, _ = mla.mla_decode(cfg, p["attn"], h, cache, pos, rope)
+    else:
+        out, _ = attn.decode_attention(cfg, p["attn"], h, cache, pos, rope)
+    x = x + out
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        y, _ = moe_mod.moe_apply(cfg, p["moe"], h)
+    else:
+        y = mlp_apply(cfg, p["mlp"], h)
+    return x + y
+
+
+def _mamba_decode_block(cfg, p, x, cache):
+    step = mamba.mamba1_decode if cfg.ssm.version == 1 \
+        else mamba.mamba2_decode
+    out, _ = step(cfg, p, x, cache)
+    return x + out
+
+
+def lm_decode(cfg, params, caches, tokens, pos: int):
+    """One decode step. tokens [B,1]; ``pos`` their position. Returns
+    (logits [B, vocab_size], new caches); ``caches`` is not written."""
+    x = embed_tokens(cfg, params["embed"]["table"], tokens,
+                     getattr(torch, cfg.dtype))
+    new = _clone(caches)
+    rope = rope_tables_for(cfg, 1, x.device, start=pos)
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        for name in ("dense_layers", "layers"):
+            if name not in params:
+                continue
+            for i in range(_depth(params[name])):
+                x = _attn_decode_block(cfg, _layer(params[name], i), x,
+                                       _layer(new[name], i), pos, rope)
+    elif fam == "ssm":
+        for i in range(cfg.num_layers):
+            x = _mamba_decode_block(cfg, _layer(params["layers"], i), x,
+                                    _layer(new["layers"], i))
+    elif fam == "hybrid":
+        g, per, tail = _hybrid_shape(cfg)
+        for j in range(g):
+            group, gcache = _layer(params["groups"], j), \
+                _layer(new["groups"], j)
+            for i in range(per):
+                x = _mamba_decode_block(cfg, _layer(group, i), x,
+                                        _layer(gcache, i))
+            x = _attn_decode_block(cfg, params["shared_attn"], x,
+                                   _layer(new["shared_attn"], j), pos, rope)
+        for i in range(tail):
+            x = _mamba_decode_block(cfg, _layer(params["tail"], i), x,
+                                    _layer(new["tail"], i))
+    else:
+        raise ValueError(fam)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = lm_logits(cfg, params, x, padded_vocab(cfg))
+    return logits[:, 0, :cfg.vocab_size], new

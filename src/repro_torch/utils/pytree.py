@@ -11,7 +11,9 @@ nodes. ``None`` is an empty node (no leaves); everything else is a leaf.
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
+import re
 from typing import Any, Callable
 
 import torch
@@ -115,6 +117,68 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     out = _unflatten(treedef, it)
     if next(it, None) is not None:
         raise ValueError("too many leaves for the tree structure")
+    return out
+
+
+_DICT_KEY = re.compile(r"\[('(?:[^'\\]|\\.)*'|\"(?:[^\"\\]|\\.)*\"|-?\d+)\]")
+
+
+def _dict_keys(rest: str) -> list:
+    """``"['a'][0]"`` -> ``['a', 0]``: a path suffix made only of dict
+    keys; ValueError for anything else (an attribute, say)."""
+    keys, at = [], 0
+    for m in _DICT_KEY.finditer(rest):
+        if m.start() != at:
+            break
+        keys.append(ast.literal_eval(m[1]))
+        at = m.end()
+    if at != len(rest) or not keys:
+        raise ValueError(f"not a path of dict keys: {rest!r}")
+    return keys
+
+
+def _graft(x, path, items: dict, device):
+    node = _node(x)
+    if node is None:
+        v = items.pop(keystr(path))
+        return v.to(x.device) if isinstance(x, torch.Tensor) else v
+    kind, ctx, kids = node
+    if kind == "dict" and not kids:
+        pre = keystr(path)
+        out = type(x)()
+        for p in [p for p in items if p.startswith(pre)]:
+            *inner, last = _dict_keys(p[len(pre):])
+            d = out
+            for k in inner:
+                d = d.setdefault(k, {})
+            v = items.pop(p)
+            d[last] = v.to(device) if device is not None else v
+        return out
+    vals = [_graft(c, path + (k,), items, device) for k, c in kids]
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return ctx[0](zip(ctx[1], vals))
+    if kind == "namedtuple":
+        return ctx(*vals)
+    if kind == "list":
+        return vals
+    if kind == "tuple":
+        return tuple(vals)
+    return ctx[0](**dict(zip(ctx[1], vals)))
+
+
+def tree_graft(like, items: dict, device=None):
+    """``like``'s structure filled from ``items`` ({keystr path: tensor}),
+    each leaf by its path and on its ``like`` leaf's device, where an EMPTY
+    dict of ``like`` takes the nested dicts that ``items`` hold below its
+    path, on ``device`` (a script-tier changeset variable first bound to
+    ``{}``, checkpointed once its loop filled it). KeyError / ValueError if
+    a leaf is missing or one is left over."""
+    items = dict(items)
+    out = _graft(like, (), items, device)
+    if items:
+        raise ValueError(f"no place in the tree for {sorted(items)[:3]}")
     return out
 
 

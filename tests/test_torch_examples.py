@@ -44,3 +44,37 @@ def test_examples_record_then_replay_bit_identical(tmp_path, arch):
         assert (f"deferred correctness check: ok=True compared={compared} "
                 f"hindsight_values={hindsight}") in out
         assert _digest(out) == recorded
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-7b"])
+def test_serve_example_prints_greedy_tokens(arch):
+    """examples/torch_serve.py on the CPU prints the tokens that the port's
+    ``greedy_generate`` gives for the same config, seed and prompts."""
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.serve.step import greedy_generate
+
+    batch, prompt_len, steps = 2, 24, 6
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "examples",
+                                                     "torch_serve.py"),
+                        "--device", "cpu", "--arch", arch, "--batch",
+                        str(batch), "--prompt-len", str(prompt_len),
+                        "--steps", str(steps)],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    printed = re.search(r"tokens of request 0: (\[.*\])", r.stdout)[1]
+    cfg = C.get_smoke(arch)
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)            # as the example runs
+    try:
+        want = greedy_generate(cfg, build_model(cfg).init(0, "cpu"),
+                               synthetic_batch(cfg, batch, prompt_len, 0),
+                               steps=steps, max_len=prompt_len + steps)
+    finally:
+        torch.set_num_threads(n)
+    assert printed == str(want[0].tolist())

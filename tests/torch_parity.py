@@ -82,3 +82,29 @@ def check_parity(jfn, tfn, np_params, xs, out_shapes, out_rtol=OUT_RTOL_F32,
         assert g.shape == want.shape and np.isfinite(g).all()
         assert max_rel(g, want) <= grad_rtol
     return jy, jgp, jgx
+
+
+def to_torch(np_tree, device="cpu"):
+    """A tree of numpy (or jax) leaves -> the same tree of tensors."""
+    from repro_torch.train.state import _to_tensor
+    return jax.tree_util.tree_map(lambda a: _to_tensor(np.asarray(a), device),
+                                  np_tree)
+
+
+def leaves_by_path(tree) -> dict:
+    """{keystr path: numpy leaf} of a reference (jax / numpy) tree or of a
+    port (tensor) tree, floating leaves as f32, so the two compare leaf for
+    leaf by path."""
+    def host(a):
+        a = np.asarray(a)
+        return a.astype(np.float32) if a.dtype.kind == "f" \
+            or a.dtype.name == "bfloat16" else a
+
+    if isinstance(jax.tree_util.tree_leaves(tree)[0], torch.Tensor):
+        from repro_torch.utils.pytree import keystr, tree_flatten_with_path
+        flat, _ = tree_flatten_with_path(tree)
+        return {keystr(p): host(x.detach().cpu().float()
+                                if x.is_floating_point() else x.cpu())
+                for p, x in flat}
+    return {jax.tree_util.keystr(p): host(x)
+            for p, x in jax.tree_util.tree_leaves_with_path(tree)}
