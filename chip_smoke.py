@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--kernels-only | --mixtral-only | --families-only
-                           | --serve-only | --handsfree-only]
+                           | --serve-only | --handsfree-only | --dist-only]
 
 Run from a checkout on a machine with one NVIDIA H100. Phases:
 
@@ -117,12 +117,15 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    restore), an outer probe logging the embedding norm, and the final
    state equal to the recorded one bit for bit; its kernel launches are
    counted as a path's (the restore path runs none);
-11. main path B: ``flor.Session`` at the same width (2 epochs x 3 steps:
-   a full checkpoint, then a delta that inherits the full one's quantized
-   chunks) with ``RecordSpec(ckpt_error_bounds={"mu": 1e-2, "nu": 1e-3},
+11. main path B: ``flor.Session`` at the same width, cut to 2 of its 12
+   layers (``LIN_LAYERS``, as the lineage paths below: the writer time of
+   a full-depth checkpoint went to phase D), 2 epochs x 3 steps (a full
+   checkpoint, then a delta that inherits the full one's quantized chunks)
+   with ``RecordSpec(ckpt_error_bounds={"mu": 1e-2, "nu": 1e-3},
    ckpt_overlap=True)``; the restore of the delta through that lossy chain
-   holds ``mu``/``nu`` within their bounds, every other leaf bit for bit. At these bounds the selector stores every
-   moment chunk as q4, so the q8 kernel does not run here;
+   holds ``mu``/``nu`` within their bounds, every other leaf bit for bit.
+   At these bounds the selector stores every moment chunk as q4, so the q8
+   kernel does not run here;
 12. main path C: the same Session with tight bounds
    (``TIGHT_BOUNDS``, 1 epoch x 3 steps), at which the selector splits
    the moment chunks between q4, q8 and raw, checked as in B;
@@ -153,18 +156,42 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    one, ``lineage="W"`` must hold A2's and W's rows only, and ``python -m
    repro_torch.launch.runs list|show|diff|logs|pivot`` must exit 0 (their
    output printed); query walls printed;
-18. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
-   paths A, R1, B, C, A2, W, W2, R3 and H and their passes over the mixtral
-   state and phase F's four states, outside that count; for the four
-   ``ops`` kernels, the launches of their own phase),
-   the card line, and last the JSON line ``{"ok": true, "device":
-   {...}}``.
+18. phase D, mesh-sharded record over a fleet, after ``empty_cache`` with
+   no state held: florbench-100m at full width and depth with path A's
+   seed, batches and steps, in processes of this script (``--d-child``)
+   that share the card through a gloo group on a loopback coordinator:
+   - D1: four processes on a (2, 2) ``DeviceMesh`` ("data", "model") train
+     replicated; at each epoch's last step the checkpoint scope gets the
+     TrainState placed by ``launch.specs.state_shardings`` (each rank its
+     own slices, no collective) and a fleet ``flor.Session`` records it:
+     each process fingerprints only the shards it owns (#2 once per owned
+     shard, then #1), writes its member manifests, and the lead stitches
+     every epoch's v4; each prints its shards, bytes, launches, submit
+     stall, writer and stitch seconds, and the four trained states must be
+     equal leaf for leaf (blake2b);
+   - then three things side by side, none reading what another writes:
+     D2a, ``get_tree`` of the tip unsharded onto the card, equal bit for
+     bit to the fleet's state and to path A's ``A::train@1.0``; D2b,
+     ``restore_sharded_tree`` onto a (1, 2) mesh of two processes, each
+     local shard equal to its slice of D2a's restore, with the bytes each
+     rank read beside its shard's and each restore's seconds and GB/s; D3,
+     ``python -m repro_torch.launch.replay --num-processes 2`` as two
+     replay hosts over path A's run (probe ``train``, 2 tasks): host 0
+     merges after the store-file barrier and prints ``deferred check:
+     ok=True`` with one hindsight row per step, the same rows R2 merged;
+19. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
+   paths A, R1, B, C, A2, W, W2, R3, H and D and their passes over the
+   mixtral state and phase F's four states, outside that count; for the
+   four ``ops`` kernels, the launches of their own phase), the card line,
+   and last the JSON line ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2, ``--mixtral-only`` runs phase M
 alone after the build, ``--families-only`` phase F alone, ``--serve-only``
-phase S alone and ``--handsfree-only`` phase H alone. Any failed
-phase exits non-zero before the last line is printed. The run directories live under ``build/chip_smoke``
-(git-ignored) and are removed at the end.
+phase S alone, ``--handsfree-only`` phase H alone and ``--dist-only``
+path A (which phase D reads) and phase D. Any failed phase, and any of
+phase D's processes that fails, exits non-zero before the last line is
+printed. The run directories live under ``build/chip_smoke`` (git-ignored)
+and are removed at the end.
 """
 from __future__ import annotations
 
@@ -196,6 +223,8 @@ B_BOUNDS = {"mu": 1e-2, "nu": 1e-3}
 # else raw; these put the measured moment amplitudes across all three
 TIGHT_BOUNDS = {"mu": 1e-5, "nu": 1e-8}
 A_TIP = f"A::train@{EPOCHS - 1}.0"
+# R2's merged rows, kept for phase D's replay hosts to match
+R2_ROWS = os.path.join(WORK, "r2_merged_replay.jsonl")
 # W, W2 and R3 run florbench-100m at full width cut to LIN_LAYERS layers,
 # derived from their own parent run A2 (the launcher, 1 x 3 steps, at the
 # same cut): a warm start needs its parent's structure, and the cut makes
@@ -1045,6 +1074,8 @@ def replay_r2(torch, dev, smoke=False):
         fail("R2 printed no passing deferred check")
     if int(m[3]) != EPOCHS * STEPS:
         fail(f"R2 hindsight rows {m[3]} != {EPOCHS * STEPS}")
+    # phase D's replay hosts merge into the same file: keep R2's rows
+    shutil.copy(os.path.join(run, "logs", "merged_replay.jsonl"), R2_ROWS)
     say(f"replay R2: python -m repro_torch.launch.replay --probe train "
         f"--nworkers 2 --check on the card: wall {wall:.2f} s; deferred "
         f"check: ok=True, compared {m[2]}, hindsight {m[3]}")
@@ -1111,7 +1142,7 @@ def session_path(torch, ops, dev, cfg, tag: str, bounds: dict, epochs: int):
         f"{s} max err {max(e for p, e in errs.items() if f'.{s}' in p):.3e} "
         f"(atol {a})" for s, a in bounds.items())
     say(f"main path {tag.upper()}: flor.Session {cfg.d_model}-wide "
-        f"florbench-100m, overlap, ckpt_error_bounds {json.dumps(bounds)}, "
+        f"{cfg.num_layers}-layer florbench-100m, overlap, ckpt_error_bounds {json.dumps(bounds)}, "
         f"{epochs}x{STEPS} steps in {wall:.2f} s, final loss {loss:.4f}; "
         f"chunk encodings of {key} by slot: {json.dumps(encs)}; restore: "
         f"params/step/rng bit-identical, {err_line}")
@@ -2200,6 +2231,378 @@ def phase_h(torch, ops, dev) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase D --
+# a (2, 2) DeviceMesh of four processes sharing the card records path A's
+# run (same seed, batches and steps) with the TrainState placed by
+# launch.specs.state_shardings; then the restores and two replay hosts
+D_MESH = (2, 2)
+D_RESTORE_MESH = (1, 2)          # D2b: the resharded restore's fleet
+D_RUN = os.path.join(WORK, "path_d")
+D_TIP = f"train@{EPOCHS - 1}.0"
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def leaf_digests(tree) -> dict:
+    """{leaf path: blake2b-16 hex of its bytes}."""
+    from repro_torch.utils.pytree import tree_digest, tree_leaves_with_paths
+
+    return {p: tree_digest(x) for p, x in tree_leaves_with_paths(tree)}
+
+
+def replay_rows(path: str) -> list:
+    """(epoch, key, value) of every row of a merged replay log."""
+    with open(path) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return sorted((r.get("epoch"), r["key"], json.dumps(r.get("value")))
+                  for r in rows)
+
+
+def d_start(role: str, n: int, dev, smoke: bool) -> list:
+    """Start ``n`` children of this script (``--d-child role rank port dev
+    smoke batch seq``) over one loopback gloo coordinator, all on
+    ``dev``."""
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("LOCAL_RANK", None)     # DeviceMesh would pick cuda:<LOCAL_RANK>
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--d-child", role,
+         str(r), str(port), str(dev), str(int(smoke)), str(BATCH),
+         str(SEQ)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(n)]
+
+
+def d_wait(role: str, procs: list, timeout: int) -> list:
+    """Wait for a fleet from ``d_start``; each process must exit 0. Returns
+    their results (``path_d/<role>_p<rank>.json``) by rank."""
+    n = len(procs)
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            for line in out.strip().splitlines():
+                say(f"  {role} p{r}| {line}")
+            if p.returncode != 0:
+                fail(f"phase D {role} process {r} exited {p.returncode}:\n"
+                     f"{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for r in range(n):
+        with open(os.path.join(D_RUN, f"{role}_p{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def d_child(role: str, rank: int, port: int, dev: str, smoke: bool):
+    """One process of a phase D fleet on ``dev`` (the card): ``record`` (D1,
+    one of four on a (2, 2) mesh) or ``restore`` (D2b, one of two on
+    (1, 2))."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch.configs as C
+    from repro_torch.parallel.rendezvous import init_distributed
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    shape = D_MESH if role == "record" else D_RESTORE_MESH
+    n = shape[0] * shape[1]
+    group = init_distributed(f"127.0.0.1:{port}", rank, n)
+    try:
+        mesh = DeviceMesh(dev.type, torch.arange(n).reshape(shape),
+                          mesh_dim_names=("data", "model"))
+        cfg = (C.get_smoke if smoke else C.get)("florbench-100m")
+        res = d_record(torch, dev, cfg, mesh, group) if role == "record" \
+            else d_restore(torch, dev, mesh, rank)
+        with open(os.path.join(D_RUN, f"{role}_p{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def d_record(torch, dev, cfg, mesh, group) -> dict:
+    """D1 in one process: train replicated on path A's batches; at each
+    epoch's last step the checkpoint scope gets the TrainState placed on
+    the mesh (each rank's own slices); record under a fleet Session."""
+    import repro_torch.flor as flor
+    from repro_torch.checkpoint.mesh import (device_maps, local_anchor,
+                                             owned_shards)
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import state_shardings
+    from repro_torch.parallel import place
+    from repro_torch.train.step import build_train_step
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    init_state, ts = build_train_step(cfg, device=dev)
+    state = init_state(SEED)
+    shardings = state_shardings(cfg, mesh, state)
+
+    def placed(st):
+        return tree_map(lambda x, sh: place(x, mesh, sh.spec), st, shardings)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with flor.Session(D_RUN, mode="record", record=flor.RecordSpec(
+            adaptive=False, mesh=mesh, distributed=group)) as sess:
+        with sess.checkpointing(state=placed(state)) as ckpt:
+            for epoch in sess.loop("epochs", range(EPOCHS)):
+                for s in sess.loop("train", range(STEPS)):
+                    b = synthetic_batch(cfg, BATCH, SEQ, epoch * STEPS + s,
+                                        SEED)
+                    state, m = ts(state, b)
+                    if s == STEPS - 1:
+                        ckpt.state = placed(state)
+                flor.log("loss", m["loss"])
+        sess.ctx.pipeline.drain()
+        stats = sess.ctx.pipeline.stats
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    ords, hosts = device_maps(mesh)
+    anchor = local_anchor(mesh, ords, hosts, 0)
+    own = [sh for x in tree_leaves(placed(state)) if x.numel()
+           for sh in owned_shards(x, mesh, ords, hosts, group.process_id,
+                                  anchor)]
+    say(f"D1 rank {group.process_id} at {mesh.get_coordinate()}: "
+        f"{len(own)} shards owned, "
+        f"{sum(s['data'].numel() * s['data'].element_size() for s in own)} "
+        f"bytes; launches {json.dumps(counts)}; {wall:.2f} s")
+    return {"rank": group.process_id, "wall_s": wall, "counts": counts,
+            "n_owned": len(own),
+            "owned_bytes": sum(s["data"].numel() * s["data"].element_size()
+                               for s in own),
+            "digests": leaf_digests(state),
+            "stats": [{k: st.get(k) for k in (
+                "key", "kind", "submit_stall_s", "materialize_s", "stitch_s",
+                "stored_bytes", "transferred_bytes", "stitched")}
+                | {"shard_bytes": sum((st.get("shard_bytes") or {}).values())}
+                for st in stats]}
+
+
+def d_restore(torch, dev, mesh, rank: int) -> dict:
+    """D2b in one process: ``restore_sharded_tree`` of run D's tip onto the
+    (1, 2) mesh; each leaf's local shard, its box and digest."""
+    from repro_torch.checkpoint import CheckpointStore, restore_sharded_tree
+    from repro_torch.parallel.sharding import local_box
+    from repro_torch.utils.pytree import tree_digest
+
+    store = CheckpointStore(os.path.join(D_RUN, "store"))
+    stats: dict = {}
+    t0 = time.perf_counter()
+    out = restore_sharded_tree(store, D_TIP, mesh, stats_out=stats)
+    sync(torch, dev)
+    dt = time.perf_counter() - t0
+    leaves = []
+    for path, x in out.items():
+        loc = x.to_local()
+        if loc.device != dev:
+            fail(f"D2b {path} restored on {loc.device}, not {dev}")
+        leaves.append({"path": path, "box": local_box(x.shape, mesh,
+                                                      x.placements),
+                       "digest": tree_digest(loc),
+                       "bytes": loc.numel() * loc.element_size()})
+    return {"rank": rank, "restore_s": dt, "leaves": leaves,
+            "bytes_read": sum(stats["bytes_by_shard"].values()),
+            "chunks_read": stats["chunks_read"]}
+
+
+def placeholder_like(torch, cfg, dev):
+    """A ``{"state": TrainState}`` of empty tensors on ``dev``: the
+    structure and devices a ``get_tree(like=)`` needs, without the bytes."""
+    from repro_torch.models.api import build_model
+    from repro_torch.train.state import TrainState
+
+    def empty(tree):
+        if isinstance(tree, dict):
+            return {k: empty(v) for k, v in tree.items()}
+        return torch.empty(0, device=dev)
+
+    shapes = build_model(cfg).param_shapes()
+    return {"state": TrainState(empty(shapes), empty(shapes), empty(shapes),
+                                torch.empty(0, device=dev),
+                                torch.empty(0, device=dev))}
+
+
+def phase_d(torch, dev, digests_a: dict, smoke=False) -> dict:
+    """D1 the fleet record, D2 the restores, D3 two replay hosts; returns
+    the record fleet's kernel launches summed over its four processes."""
+    import repro_torch.configs as C
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.utils.pytree import tree_digest, tree_leaves_with_paths
+
+    shutil.rmtree(D_RUN, ignore_errors=True)
+    os.makedirs(D_RUN)
+    cfg = (C.get_smoke if smoke else C.get)("florbench-100m")
+    # ---- D1 ----
+    t0 = time.perf_counter()
+    recs = d_wait("record", d_start("record", D_MESH[0] * D_MESH[1], dev,
+                                    smoke), timeout=900)
+    d1 = time.perf_counter() - t0
+    store = CheckpointStore(os.path.join(D_RUN, "store"))
+    for e in range(EPOCHS):
+        m = store.get_manifest(f"train@{e}.0")
+        if m is None or m.get("version") != 4 or len(m["members"]) != 4:
+            fail(f"D1 epoch {e}: no stitched v4 with 4 members")
+    if (store.get_meta("incomplete_ckpts") or {}).get("keys"):
+        fail(f"D1 incomplete checkpoints: "
+             f"{store.get_meta('incomplete_ckpts')}")
+    counts: dict = {}
+    state_bytes = 0
+    for r in recs:
+        if r["digests"] != recs[0]["digests"]:
+            bad = [p for p in r["digests"]
+                   if r["digests"][p] != recs[0]["digests"][p]]
+            fail(f"D1 rank {r['rank']} trained another state than rank 0: "
+                 f"{bad[:4]}")
+        c = r["counts"]
+        # first sight: #2 once per owned shard; later epochs #1
+        if c.get("fingerprint") != r["n_owned"] or \
+                c.get("fingerprint_changed") != r["n_owned"] * (EPOCHS - 1):
+            fail(f"D1 rank {r['rank']}: launches {c} for {r['n_owned']} "
+                 f"owned shards")
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        state_bytes += r["owned_bytes"]
+        st = r["stats"]
+        stitch = [x["stitch_s"] for x in st]
+        say(f"D1 rank {r['rank']}: {r['n_owned']} shards, "
+            f"{r['owned_bytes'] / 1e9:.4f} GB owned; #2 "
+            f"{c.get('fingerprint')} / #1 {c.get('fingerprint_changed')} "
+            f"launches; submit stall "
+            f"{sum(x['submit_stall_s'] for x in st):.2f} s, writer "
+            f"{sum(x['materialize_s'] for x in st):.2f} s for "
+            f"{sum(x['shard_bytes'] for x in st) / 1e9:.4f} GB; stitch "
+            + ("(lead) " if r["rank"] == 0 else "(publish) ")
+            + ", ".join(f"{s:.2f}" for s in stitch) + " s; record "
+            f"{r['wall_s']:.2f} s")
+    if state_bytes != sum(
+            int(lf["nbytes"]) for lf in store.get_manifest(D_TIP)["leaves"]):
+        fail(f"D1 owned shards hold {state_bytes} bytes, not the state's")
+    say(f"D1: (2, 2) fleet of 4 processes on one card, florbench-100m "
+        f"{EPOCHS}x{STEPS} steps at {BATCH}x{SEQ}, {EPOCHS} epochs "
+        f"stitched (v4 + 4 members each), {state_bytes / 1e9:.4f} GB state "
+        f"covered once by the owned shards; wall {d1:.2f} s")
+    # ---- D2a in this process, beside D2b's two processes and D3's two
+    # replay hosts: none of the three reads what another writes ----
+    run_a = os.path.join(WORK, "path_a")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # their output goes to files: nothing reads it before D2 is done
+    d3_logs = [(os.path.join(D_RUN, f"d3_host{h}.out"),
+                os.path.join(D_RUN, f"d3_host{h}.err")) for h in (0, 1)]
+    t3 = time.perf_counter()
+    d3_procs = []
+    for h, (out_p, err_p) in enumerate(d3_logs):
+        with open(out_p, "w") as out_f, open(err_p, "w") as err_f:
+            d3_procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.replay",
+                 "--run-dir", run_a, "--probe", "train", "--nworkers", "2",
+                 "--check", "--batch", str(BATCH), "--seq", str(SEQ),
+                 "--seed", str(SEED), "--device", torch.device(dev).type,
+                 "--num-processes", "2", "--process-id", str(h),
+                 "--merge-timeout", "600",
+                 *(["--smoke"] if smoke else [])],
+                cwd=ROOT, env=env, stdout=out_f, stderr=err_f))
+    t0 = time.perf_counter()
+    d2b_procs = d_start("restore", D_RESTORE_MESH[0] * D_RESTORE_MESH[1],
+                        dev, smoke)
+    try:
+        t1 = time.perf_counter()
+        rstats: dict = {}
+        full = store.get_tree(D_TIP, like=placeholder_like(torch, cfg, dev),
+                              stats_out=rstats)
+        sync(torch, dev)
+        d2a = time.perf_counter() - t1
+        got = leaf_digests(full["state"])
+        for name, want in (("the fleet's trained state", recs[0]["digests"]),
+                           ("path A's A::train@1.0", digests_a)):
+            if got != want:
+                bad = [p for p in got if got[p] != want.get(p)]
+                fail(f"D2a unsharded restore differs from {name}: {bad[:4]}")
+        say(f"D2a: get_tree({D_TIP}) unsharded onto the card in {d2a:.2f} s "
+            f"({state_bytes / d2a / 1e9:.3f} GB/s, {rstats['chunks_read']} "
+            f"chunks from {len(rstats['bytes_by_shard'])} store shards); "
+            f"all {len(got)} leaves bit-identical to the fleet's state and "
+            f"to A::train@{EPOCHS - 1}.0")
+        # ---- D2b ----
+        rest = d_wait("restore", d2b_procs, timeout=600)
+        d2b = time.perf_counter() - t0
+    except BaseException:
+        for p in d2b_procs + d3_procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        raise
+    by_path = dict(tree_leaves_with_paths(full))
+    for r in rest:
+        for lf in r["leaves"]:
+            x = by_path[lf["path"]]
+            want = tree_digest(x[tuple(slice(lo, hi) for lo, hi in lf["box"])])
+            if lf["digest"] != want:
+                fail(f"D2b rank {r['rank']} {lf['path']} box {lf['box']} "
+                     f"differs from its slice of the unsharded restore")
+        mine = sum(lf["bytes"] for lf in r["leaves"])
+        say(f"D2b rank {r['rank']}: restore_sharded_tree onto (1, 2) in "
+            f"{r['restore_s']:.2f} s ({mine / r['restore_s'] / 1e9:.3f} "
+            f"GB/s); read {r['bytes_read']} bytes ({r['chunks_read']} "
+            f"chunks) for a {mine}-byte shard; every local shard equal to "
+            f"its slice")
+    del full, by_path
+    torch.cuda.empty_cache()
+    say(f"D2b: two processes, wall {d2b:.2f} s from their start")
+    # ---- D3 ----
+    outs = []
+    try:
+        for h, p in enumerate(d3_procs):
+            p.wait(timeout=600)
+            with open(d3_logs[h][0]) as f:
+                out = f.read()
+            outs.append(out)
+            for line in out.strip().splitlines():
+                say(f"  D3 host {h}| {line}")
+            if p.returncode != 0:
+                with open(d3_logs[h][1]) as f:
+                    err = f.read()
+                fail(f"D3 replay host {h} exited {p.returncode}:\n"
+                     f"{err[-4000:]}")
+    finally:
+        for p in d3_procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    d3 = time.perf_counter() - t3
+    m = re.search(r"deferred check: ok=(\w+) compared=(\d+) "
+                  r"hindsight=(\d+)", outs[0])
+    if not m or m[1] != "True":
+        fail("D3 host 0 printed no passing deferred check")
+    if int(m[3]) != EPOCHS * STEPS:
+        fail(f"D3 hindsight rows {m[3]} != {EPOCHS * STEPS}")
+    same = "R2 not run"
+    if os.path.exists(R2_ROWS):
+        if replay_rows(os.path.join(run_a, "logs", "merged_replay.jsonl")) \
+                != replay_rows(R2_ROWS):
+            fail("D3's merged rows differ from R2's")
+        same = "merged rows equal R2's"
+    say(f"D3: two replay hosts (--num-processes 2) over path A on the card, "
+        f"wall {d3:.2f} s from their start; host 0: deferred check ok=True "
+        f"compared {m[2]} hindsight {m[3]}; {same}")
+    say(f"phase D: D1 {d1:.2f} s, then side by side D2a {d2a:.2f} s, D2b "
+        f"{d2b:.2f} s and D3 {d3:.2f} s")
+    return counts
+
+
 # ------------------------------------------------------------------ main --
 # kernel -> (CUDA source, the TPU kernel it replaces, its path); "record"
 # kernels must have launched on paths A-C and A2-R3, "ops" kernels report the
@@ -2282,6 +2685,13 @@ def main():
     # phase M leaves the caching allocator's segments split before it: let
     # segments grow in place instead
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    if sys.argv[1:2] == ["--d-child"]:
+        # a phase D fleet process: role rank port device smoke batch seq
+        global BATCH, SEQ
+        role, rank, port, dev, smoke, BATCH, SEQ = sys.argv[2:9]
+        BATCH, SEQ = int(BATCH), int(SEQ)
+        d_child(role, int(rank), int(port), dev, smoke == "1")
+        return
     import torch
 
     if not torch.cuda.is_available():
@@ -2336,6 +2746,17 @@ def main():
         lap("H")
         say("--handsfree-only: stopping after phase H")
         return
+    if "--dist-only" in sys.argv[1:]:
+        # phase D reads path A's run (D2a's comparison, D3's replay)
+        counts_a, state_a = main_path_a(torch, ops, dev)
+        digests_a = leaf_digests(state_a)
+        del state_a
+        torch.cuda.empty_cache()
+        lap("A")
+        say(f"launches path D: {json.dumps(phase_d(torch, dev, digests_a))}")
+        lap("D")
+        say("--dist-only: stopping after phase D")
+        return
     cfg = C.get("florbench-100m")
     results = kernel_phase(torch, dev, hbm_bps, cfg)
     if "--kernels-only" in sys.argv[1:]:
@@ -2362,20 +2783,24 @@ def main():
     lap("H")
     model_check(torch, dev)
     counts_a, state_a = main_path_a(torch, ops, dev)
+    digests_a = leaf_digests(state_a)
     lap("A")
     replay_r2(torch, dev)
     lap("R2")
     counts_r1 = replay_r1(torch, dev, cfg, state_a)
     del state_a
     lap("R1")
-    counts_b = session_path(torch, ops, dev, cfg, "b", B_BOUNDS, B_EPOCHS)
+    # B and C at the lineage paths' cut (2 of 12 layers, full width): the
+    # writer's minutes a full-depth checkpoint costs went to phase D
+    cfg_lin = cfg.replace(num_layers=LIN_LAYERS)
+    counts_b = session_path(torch, ops, dev, cfg_lin, "b", B_BOUNDS,
+                            B_EPOCHS)
     lap("B")
-    counts_c = session_path(torch, ops, dev, cfg, "c", TIGHT_BOUNDS,
+    counts_c = session_path(torch, ops, dev, cfg_lin, "c", TIGHT_BOUNDS,
                             C_EPOCHS)
     lap("C")
     counts_a2 = path_a2(torch, ops, dev)
     lap("A2")
-    cfg_lin = cfg.replace(num_layers=LIN_LAYERS)
     counts_w, state_w = path_w(torch, ops, dev)
     lap("W")
     counts_w2 = path_w2(torch, ops, dev, cfg_lin)
@@ -2385,9 +2810,12 @@ def main():
     lap("R3")
     path_q(torch)
     lap("Q")
+    torch.cuda.empty_cache()
+    counts_d = phase_d(torch, dev, digests_a)
+    lap("D")
     paths = {"A": counts_a, "R1": counts_r1, "B": counts_b, "C": counts_c,
              "A2": counts_a2, "W": counts_w, "W2": counts_w2,
-             "R3": counts_r3, "H": counts_h}
+             "R3": counts_r3, "H": counts_h, "D": counts_d}
     for tag, counts in paths.items():
         say(f"launches path {tag}: {json.dumps(counts)}")
     say(json.dumps({"kernels": kernels_line(results, paths)}))

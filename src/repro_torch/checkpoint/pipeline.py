@@ -61,11 +61,24 @@ Slots declared via ``error_bounds`` pick, per changed chunk, the cheapest
 encoding whose GUARANTEED bound (delta.Q4_ATOL_DIV / Q8_ATOL_DIV margins)
 satisfies the slot's atol.
 
+Mesh-aware record (``mesh=``, a ``DeviceMesh``; leaves placed on it as
+``DTensor``s): the same flow runs PER SHARD — each shard's fused
+fingerprint+gather pass reads only its own contiguous buffer (the CUDA
+kernels launch on each local shard, never on a gathered tensor), its wire
+chunks land in its store shard, and the job writes one v3 member manifest
+per store shard plus a v4 stitching manifest recording the global layout
+(per-leaf shape, recorded spec, shard bounds + placement). Delta chains run
+per shard (``<key>.shard<h>``), so inheritance, full-every bounds and
+structure-change fallbacks behave exactly as in the flat path — a layout
+change is a structure change and forces a full manifest. A DeviceMesh has
+one process per position, so a mesh of more than one position records as a
+fleet (``dist=``): each process writes its own members and the lead stitches
+the v4 through the file rendezvous (parallel/rendezvous.py). See
+checkpoint/mesh.py for the restore-side stitch/reshard geometry.
+
 Cross-run warm start (``warm_start``) seeds a scope from an ancestor run's
 final resolved manifest, so a derived run's first checkpoint is a delta
-against it. Mesh-aware (``mesh=``) and multi-process (``dist=``) record are
-later slices of this package (ROADMAP queue 1, items 12 and 13); their
-arguments raise NotImplementedError here.
+against it.
 
 A delta manifest inherits every unlisted chunk hash from its parent chain
 (`CheckpointStore.resolve_manifest`). Chains are bounded: a FULL manifest is
@@ -131,10 +144,40 @@ class CheckpointPipeline:
         self.full_every = DEFAULT_FULL_EVERY if self.full_every_auto \
             else max(1, int(full_every))
         self.tracker = DeltaTracker(chunk_words)
-        if mesh is not None or dist is not None:
-            raise NotImplementedError(
-                "mesh-sharded / multi-process record is not ported yet "
-                "(ROADMAP queue 1, items 12-13)")
+        # mesh-aware record: each shard runs the fused fingerprint pass over
+        # its OWN buffer, its chunks land in its store shard, and a v4
+        # stitching manifest records the layout. shard_axes picks which mesh
+        # axes map onto store shards (default: all — one store shard per
+        # mesh position).
+        self.mesh = mesh
+        self.shard_axes = tuple(shard_axes or ())
+        # fleet record: ``dist`` is a parallel.rendezvous.StitchRendezvous
+        # carrying this process's ProcessGroup. Each process fingerprints /
+        # gathers ONLY the shards it owns and writes ONLY its own store
+        # shards' member manifests; the lead process gathers every
+        # process's publication through the file barrier and writes the v4
+        # stitch (or marks the checkpoint incomplete past the deadline).
+        self.dist = dist
+        self._anchor = (0, 0)
+        self._incomplete: list[str] = []
+        self._key_chain: dict[str, list[str]] = {}
+        if dist is not None and mesh is None:
+            raise ValueError("dist= (a fleet record) needs mesh=")
+        if mesh is not None:
+            from repro_torch.checkpoint.mesh import (device_maps,
+                                                     local_anchor, mesh_meta)
+            if dist is None and mesh.mesh.numel() > 1:
+                raise ValueError(
+                    f"a DeviceMesh of {mesh.mesh.numel()} positions is a "
+                    f"fleet of as many processes: pass dist= (a "
+                    f"StitchRendezvous) so the lead stitches the v4")
+            self._dev_ord, self._dev_host = device_maps(mesh,
+                                                        self.shard_axes)
+            self._mesh_meta = mesh_meta(mesh, self.shard_axes)
+            if dist is not None:
+                self._anchor = local_anchor(mesh, self._dev_ord,
+                                            self._dev_host, 0)
+        self._mesh_meta_written = False
         # per-slot lossy policy: leaf paths matching any of these names /
         # glob patterns are stored blockwise-int8 (q8 wire format) when the
         # dtype supports it. Empty (the default) = every leaf exact, so the
@@ -203,6 +246,8 @@ class CheckpointPipeline:
         queue is full and block=False — the checkpoint is skipped and the
         device digest state is rolled back so the next delta stays correct).
         """
+        if self.mesh is not None:
+            return self._submit_sharded(key, tree, meta, scope, block)
         t_submit0 = time.perf_counter()
         flat, treedef = tree_flatten_with_path(tree)
         prev_sig = self._sig.get(scope, {})
@@ -322,6 +367,9 @@ class CheckpointPipeline:
         return True
 
     def _make_job(self, payload: dict):
+        if payload.get("sharded"):
+            return lambda store: self._sharded_job(payload, store)
+
         def job(store):
             scope = payload["scope"]
             if payload.get("overlap"):
@@ -486,6 +534,392 @@ class CheckpointPipeline:
         self.full_every = min(64, max(2, int(0.5 * full_read_s
                                              / max(hop_s, 1e-9))))
 
+    # ------------------------------------------------------ sharded record --
+    def _submit_sharded(self, key: str, tree: Any, meta: Optional[dict],
+                        scope: str, block: bool) -> Optional[dict]:
+        """Mesh-aware submit: per pytree leaf, enumerate the disjoint owner
+        shards (checkpoint/mesh.py) and run the fused fingerprint+gather
+        pass on EACH shard's own device buffer — no all-gather; a shard's
+        bytes only move device -> its store shard. Emits one v3
+        member manifest per store shard plus a v4 stitching manifest."""
+        from repro_torch.checkpoint.mesh import leaf_spec_entries, owned_shards
+        t_submit0 = time.perf_counter()
+        flat, treedef = tree_flatten_with_path(tree)
+        prev_sig = self._sig.get(scope, {})
+        sig: dict[str, tuple] = {}
+        entries: list[dict] = []       # one per (leaf, device shard)
+        layout: list[dict] = []        # global-manifest leaves
+        rollback: list[tuple[str, Any]] = []
+        transferred = 0
+        logical = 0
+        changed_chunks_n = 0
+        total_chunks_n = 0
+        structure_changed = False
+        shard_stall: dict[int, float] = {}
+        for path, leaf in flat:
+            pstr = keystr(path)
+            leaf = _as_tensor(leaf)
+            dtype = dtype_name(leaf.dtype)
+            shape = list(leaf.shape)
+            nbytes = leaf.numel() * leaf.element_size()
+            policy = self._slot_policy(pstr, dtype)
+            if nbytes == 0:
+                sig[pstr] = (dtype, tuple(shape), policy, ())
+                layout.append({"path": pstr, "dtype": dtype, "shape": shape,
+                               "nbytes": 0, "spec": None, "shards": []})
+                continue
+            shards = owned_shards(
+                leaf, self.mesh, self._dev_ord, self._dev_host,
+                process_index=(self.dist.group.process_id
+                               if self.dist is not None else None),
+                anchor=self._anchor)
+            # the placement is part of the structure signature: a layout
+            # change (resharded mid-run, mesh swap) forces a FULL manifest —
+            # per-shard digests from another layout cover different bytes
+            mesh_sig = tuple((s["sid"], s["hid"],
+                              tuple(map(tuple, s["bounds"])))
+                             for s in shards)
+            sig[pstr] = (dtype, tuple(shape), policy, mesh_sig)
+            layout.append({"path": pstr, "dtype": dtype, "shape": shape,
+                           "nbytes": nbytes,
+                           "spec": leaf_spec_entries(leaf),
+                           "shards": [{"sid": s["sid"], "hid": s["hid"],
+                                       "bounds": s["bounds"]}
+                                      for s in shards]})
+            logical += nbytes
+            if prev_sig.get(pstr) != sig[pstr]:
+                structure_changed = True
+                for s in shards:
+                    self.tracker.forget(f"{scope}::{pstr}::s{s['sid']}")
+            for s in shards:
+                tpath = f"{scope}::{pstr}::s{s['sid']}"
+                rollback.append((tpath, self.tracker._digests.get(tpath)))
+                local = s["data"]
+                lnb = local.numel() * local.element_size()
+                n_chunks = -(-lnb // (self.chunk_words
+                                      * native_bytes_per_word(dtype)))
+                ent = {"path": pstr, "sid": s["sid"], "hid": s["hid"],
+                       "bounds": s["bounds"], "dtype": dtype,
+                       "shape": list(local.shape),
+                       "nbytes": lnb, "n_chunks": n_chunks, "enc": policy}
+                total_chunks_n += n_chunks
+                dkw = self._policy_delta_kwargs(policy)
+                t0 = time.perf_counter()
+                if self.overlap:
+                    ent["handle"] = self.tracker.delta_dispatch(
+                        tpath, _fp_view(local), **dkw)
+                else:
+                    d = self.tracker.delta(tpath, _fp_view(local), **dkw)
+                    idx_keep, chunks_keep, encs_keep, t_bytes = \
+                        _encode_changed(d, ent, self.chunk_words)
+                    ent["changed_idx"] = idx_keep
+                    ent["chunks"] = chunks_keep
+                    ent["chunk_encs"] = encs_keep
+                    transferred += t_bytes
+                    changed_chunks_n += len(idx_keep)
+                # per-store-shard foreground cost (each process of a fleet
+                # pays its own shards' share)
+                shard_stall[s["hid"]] = shard_stall.get(s["hid"], 0.0) \
+                    + (time.perf_counter() - t0)
+                entries.append(ent)
+        if set(prev_sig) - set(sig):
+            structure_changed = True
+        last = self._last_key.get(scope)
+        since = self._since_full.get(scope, 0)
+        full = (last is None or structure_changed
+                or since + 1 >= self.full_every)
+        payload = {
+            "key": key, "scope": scope, "meta": meta or {},
+            "sharded": True, "mesh": self._mesh_meta,
+            "kind": "full" if full else "delta",
+            "parent": None if full else last,
+            "treedef": str(treedef), "chunk_words": self.chunk_words,
+            "entries": entries, "layout": layout, "overlap": self.overlap,
+            "transferred_bytes": None if self.overlap else transferred,
+            "logical_bytes": logical,
+            "changed_chunks": None if self.overlap else changed_chunks_n,
+            "total_chunks": total_chunks_n,
+            "shard_stall_s": shard_stall,
+            "submit_stall_s": time.perf_counter() - t_submit0,
+        }
+        ok = self._dispatch(payload, block=block)
+        if not ok:
+            for tpath, prev in rollback:
+                if prev is None:
+                    self.tracker.forget(tpath)
+                else:
+                    self.tracker._digests[tpath] = prev
+            return None
+        self._sig[scope] = sig
+        self._last_key[scope] = key
+        self._since_full[scope] = 0 if full else since + 1
+        if self.dist is not None:
+            self._key_chain.setdefault(scope, []).append(key)
+        return {"key": key, "kind": payload["kind"], "sharded": True,
+                "parent": payload["parent"],
+                "transferred_bytes": payload["transferred_bytes"],
+                "logical_bytes": logical,
+                "changed_chunks": payload["changed_chunks"],
+                "total_chunks": total_chunks_n,
+                "overlap": self.overlap,
+                "n_store_shards": self._mesh_meta["n_store_shards"],
+                "shard_stall_s": dict(shard_stall),
+                "submit_stall_s": payload["submit_stall_s"]}
+
+    def _sharded_job(self, payload: dict, store) -> dict:
+        """Writer half of a sharded checkpoint: per store shard, write the
+        changed chunks into that shard's pool and a v3 member manifest
+        (chained ``<key>.shard<h>`` -> ``<parent>.shard<h>``); then the v4
+        stitching manifest. Members land BEFORE the global manifest, so a
+        crash can leave orphan members but never a global that references a
+        missing one."""
+        scope = payload["scope"]
+        if payload.get("overlap"):
+            transferred = 0
+            changed_n = 0
+            for ent in payload["entries"]:
+                h = ent.pop("handle", None)
+                if h is None:
+                    continue
+                t0 = time.perf_counter()
+                d = self.tracker.finalize(h)
+                idx_keep, chunks_keep, encs_keep, t_bytes = _encode_changed(
+                    d, ent, payload["chunk_words"])
+                ent["changed_idx"] = idx_keep
+                ent["chunks"] = chunks_keep
+                ent["chunk_encs"] = encs_keep
+                transferred += t_bytes
+                changed_n += len(idx_keep)
+                ss = payload["shard_stall_s"]
+                ss[ent["hid"]] = ss.get(ent["hid"], 0.0) \
+                    + (time.perf_counter() - t0)
+            payload["transferred_bytes"] = transferred
+            payload["changed_chunks"] = changed_n
+        entropy_s = sum(self._entropy_pass(ent)
+                        for ent in payload["entries"])
+        hashes_map = self._hashes.setdefault(scope, {})
+        encs_map = self._encs.setdefault(scope, {})
+        full = payload["kind"] == "full"
+        key, parent = payload["key"], payload["parent"]
+        by_hid: dict[int, list[dict]] = {}
+        for ent in payload["entries"]:
+            by_hid.setdefault(ent["hid"], []).append(ent)
+        new_bytes = 0
+        new_chunks = 0
+        members: dict[str, str] = {}
+        shard_write_s: dict[int, float] = {}
+        shard_bytes: dict[int, int] = {}
+        for hid in sorted(by_hid):
+            t0 = time.perf_counter()
+            mleaves = []
+            for ent in by_hid[hid]:
+                wkey = f"{ent['path']}::shard{ent['sid']}"
+                n = ent["n_chunks"]
+                lenc = ent["enc"]
+                cencs = ent.get("chunk_encs") \
+                    or ["raw"] * len(ent["changed_idx"])
+                base = hashes_map.get(wkey)
+                base = [None] * n if base is None or len(base) != n \
+                    else list(base)
+                ebase = encs_map.get(wkey)
+                ebase = ["raw"] * n if ebase is None or len(ebase) != n \
+                    else list(ebase)
+                delta_hashes = {}
+                for i, data, ce in zip(ent["changed_idx"], ent["chunks"],
+                                       cencs):
+                    h, nb, new = store.put_chunk(data, shard=hid)
+                    base[i] = h
+                    ebase[i] = ce
+                    delta_hashes[str(i)] = h
+                    new_bytes += nb
+                    new_chunks += int(new)
+                    shard_bytes[hid] = shard_bytes.get(hid, 0) + len(data)
+                if any(h is None for h in base):
+                    raise RuntimeError(
+                        f"sharded delta inconsistency for {wkey!r}: "
+                        f"unchanged chunks have no known hash (manifest "
+                        f"kind {payload['kind']!r})")
+                hashes_map[wkey] = base
+                encs_map[wkey] = ebase
+                mleaf = {"path": wkey, "dtype": ent["dtype"],
+                         "shape": ent["shape"], "nbytes": ent["nbytes"],
+                         "n_chunks": n, "bounds": ent["bounds"]}
+                if lenc != "raw":
+                    mleaf["leaf_enc"] = lenc
+                if full:
+                    mleaf["chunks"] = base
+                    if any(e != "raw" for e in ebase):
+                        mleaf["enc"] = ebase
+                else:
+                    mleaf["delta"] = delta_hashes
+                    denc = {str(i): ce
+                            for i, ce in zip(ent["changed_idx"], cencs)
+                            if ce != "raw"}
+                    if denc:
+                        mleaf["denc"] = denc
+                mleaves.append(mleaf)
+            member_key = f"{key}.shard{hid}"
+            store.put_manifest({
+                "key": member_key, "version": 3,
+                "kind": payload["kind"],
+                "parent": f"{parent}.shard{hid}" if parent else None,
+                "treedef": payload["treedef"],
+                "chunk_words": payload["chunk_words"],
+                "store_shard": hid, "meta": {},
+                "leaves": mleaves,
+            })
+            members[str(hid)] = member_key
+            shard_write_s[hid] = time.perf_counter() - t0
+        if full:
+            current = {f"{ent['path']}::shard{ent['sid']}"
+                       for ent in payload["entries"]}
+            for stale in set(hashes_map) - current:
+                del hashes_map[stale]
+                encs_map.pop(stale, None)
+        # stitched: True = v4 written, False = marked incomplete, None =
+        # outcome unknown here (non-lead of a distributed fleet; the lead
+        # decides, close() reconciles the tips from the store)
+        stitched: Optional[bool] = True
+        t_stitch = time.perf_counter()
+        if self.dist is None:
+            store.put_manifest({
+                "key": key, "version": 4, "kind": "sharded",
+                "ckpt_kind": payload["kind"], "parent": parent,
+                "treedef": payload["treedef"],
+                "chunk_words": payload["chunk_words"],
+                "mesh": payload["mesh"], "members": members,
+                "meta": payload["meta"], "leaves": payload["layout"],
+            })
+        else:
+            stitched = self._dist_stitch(payload, store, members)
+        stitch_s = time.perf_counter() - t_stitch
+        if not self._mesh_meta_written and \
+                (self.dist is None or self.dist.group.is_lead):
+            store.put_meta("mesh", payload["mesh"])
+            self._mesh_meta_written = True
+        if full and stitched:
+            self._retune_full_every(store, payload["logical_bytes"])
+        return {"key": key, "kind": payload["kind"], "sharded": True,
+                "stitched": stitched,
+                "parent": parent,
+                "transferred_bytes": payload["transferred_bytes"],
+                "logical_bytes": payload["logical_bytes"],
+                "changed_chunks": payload["changed_chunks"],
+                "total_chunks": payload["total_chunks"],
+                "submit_stall_s": payload["submit_stall_s"],
+                "overlap": payload.get("overlap", False),
+                "new_bytes": new_bytes, "new_chunks": new_chunks,
+                "n_store_shards": len(by_hid),
+                "shard_stall_s": dict(payload["shard_stall_s"]),
+                "shard_write_s": shard_write_s,
+                "shard_bytes": shard_bytes,
+                # the v4 write; in a fleet, publication plus (on the lead)
+                # the wait for every process's marker
+                "stitch_s": stitch_s,
+                "entropy_s": entropy_s,
+                "full_every": self.full_every}
+
+    # ------------------------------------------------- distributed stitch --
+    def _dist_stitch(self, payload: dict, store,
+                     members: dict) -> Optional[bool]:
+        """Multi-process tail of a sharded checkpoint (writer thread).
+        Every process PUBLISHES its member-manifest names + local layout
+        fragment through the file rendezvous; the LEAD process gathers all
+        publications, validates them, merges the global layout, and writes
+        the v4 stitch atomically. Publication order is the crash-safety
+        invariant: member manifests land before the marker, the marker
+        before the stitch — so a crash anywhere in between leaves only
+        unreferenced members (GC food), never a v4 naming a missing one.
+        Past the deadline (or on validation failure) the lead marks the
+        checkpoint ``incomplete`` in run meta and training moves on.
+
+        Returns the stitch outcome on the lead (True = v4 written, False =
+        incomplete); ``None`` on non-leads, whose publication returns long
+        before the lead's verdict exists — their stats must not claim an
+        outcome, and close() reconciles their tips from the store."""
+        import os as _os
+        from repro_torch.parallel import rendezvous as rdv
+        key = payload["key"]
+        group = self.dist.group
+        if rdv.crash_requested(key, group.process_id):
+            # fault injection: die AFTER member publication, BEFORE the
+            # marker — the exact window the crash-safety argument is about
+            _os._exit(rdv.CRASH_EXIT_CODE)
+        self.dist.publish(key, {
+            "process": group.process_id,
+            "kind": payload["kind"],
+            "members": dict(members),
+            "layout_shards": {lf["path"]: lf["shards"]
+                              for lf in payload["layout"]},
+        })
+        if not group.is_lead:
+            return None      # publication done; outcome is the lead's call
+        got = self.dist.gather(key)
+        merged = self._merge_markers(store, payload, got) \
+            if got is not None else None
+        if merged is None:
+            self._mark_incomplete(store, key)
+            return False
+        layout, all_members = merged
+        store.put_manifest({
+            "key": key, "version": 4, "kind": "sharded",
+            "ckpt_kind": payload["kind"], "parent": payload["parent"],
+            "treedef": payload["treedef"],
+            "chunk_words": payload["chunk_words"],
+            "mesh": payload["mesh"], "members": all_members,
+            "meta": payload["meta"], "leaves": layout,
+        })
+        self.dist.clear(key)
+        return True
+
+    def _merge_markers(self, store, payload: dict,
+                       got: list) -> Optional[tuple]:
+        """Validate every host's publication and merge the global (layout,
+        members). None on any inconsistency — a member manifest missing
+        from disk, a host that decided a different full/delta kind, or a
+        shard set that does not tile a leaf — so a bad fleet state becomes
+        an ``incomplete`` checkpoint instead of a corrupt stitch."""
+        all_members: dict[str, str] = {}
+        for marker in got:
+            if marker.get("kind") != payload["kind"]:
+                return None
+            for hid, mkey in marker["members"].items():
+                if not store.has(mkey):
+                    return None
+                all_members[str(hid)] = mkey
+        layout = []
+        for lf in payload["layout"]:
+            merged = {k: v for k, v in lf.items() if k != "shards"}
+            shards: list[dict] = []
+            for marker in got:
+                shards.extend(marker["layout_shards"].get(lf["path"], []))
+            shards.sort(key=lambda s: s["sid"])
+            merged["shards"] = shards
+            layout.append(merged)
+            if lf["nbytes"] > 0 and lf["shape"]:
+                covered = 0
+                for s in shards:
+                    vol = 1
+                    for lo, hi in s["bounds"]:
+                        vol *= max(0, hi - lo)
+                    covered += vol
+                want = 1
+                for d in lf["shape"]:
+                    want *= int(d)
+                if covered != want:
+                    return None    # shards don't tile the leaf
+        return layout, all_members
+
+    def _mark_incomplete(self, store, key: str):
+        """Record a failed stitch in run meta (lead-only, so the
+        read-modify-write never races): the replay planner skips these
+        keys, and close() rolls final_keys back past them."""
+        self._incomplete.append(key)
+        cur = store.get_meta("incomplete_ckpts") or {"keys": []}
+        if key not in cur["keys"]:
+            cur["keys"].append(key)
+        store.put_meta("incomplete_ckpts", cur)
+
     def _materialized(self, stat: dict):
         self._stats.append(stat)
         if self._on_mat:
@@ -565,6 +999,31 @@ class CheckpointPipeline:
         if self.writer is not None:
             self.writer.close()
             self.writer = None
+        if self.dist is not None:
+            # roll each scope's tip back to the newest STITCHED key: a tail
+            # checkpoint whose stitch never happened (crashed peer,
+            # straggler past the deadline) has member manifests but no v4,
+            # and final_keys must never name it. Non-lead processes learn
+            # the outcome here, from the store, without extra coordination.
+            for scope, chain in self._key_chain.items():
+                if chain and not self.dist.group.is_lead:
+                    self._await_stitch(chain[-1])
+                live = [k for k in chain if self.store.has(k)]
+                self._last_key[scope] = live[-1] if live else None
+
+    def _await_stitch(self, key: str):
+        """Non-lead close-time wait for the lead's verdict on the tip key:
+        either the v4 appears or the key lands in the incomplete meta.
+        Bounded by the stitch timeout — a dead lead costs one deadline,
+        never a wedge."""
+        deadline = time.monotonic() + self.dist.timeout_s
+        while time.monotonic() < deadline:
+            if self.store.has(key):
+                return
+            inc = self.store.get_meta("incomplete_ckpts") or {"keys": []}
+            if key in inc.get("keys", []):
+                return
+            time.sleep(0.02)
 
     def chain_keys(self) -> list[str]:
         """The tip checkpoint key of every scope's delta chain. A GC that
@@ -646,7 +1105,10 @@ def _as_tensor(leaf) -> torch.Tensor:
     """A tensor leaf as is; numpy arrays and Python scalars as CPU tensors."""
     if isinstance(leaf, torch.Tensor):
         return leaf
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(leaf)))
+    a = np.asarray(leaf)
+    # a copy, not ascontiguousarray: that promotes a 0-d scalar to shape (1,)
+    return torch.from_numpy(a if a.flags.c_contiguous and a.flags.writeable
+                            else a.copy())
 
 
 def _fp_view(leaf: torch.Tensor) -> torch.Tensor:

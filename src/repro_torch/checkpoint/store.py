@@ -34,9 +34,11 @@ Three manifest generations coexist:
   each device shard's index bounds + owning store shard. Members chain
   deltas independently (``<key>.shard<h>`` -> ``<parent>.shard<h>``), so
   delta inheritance works per shard exactly as it does globally.
-  ``resolve_manifest`` resolves every member chain, and ``stats``/``gc``
-  follow them; stitching a v4 tree back together (``get_tree``) arrives
-  with the mesh-sharded slice of this package.
+  ``resolve_manifest`` resolves every member chain; ``get_tree`` stitches —
+  or, given a DTensor `like` leaf, reads ONLY the chunks that rank's shard
+  overlaps and reshards (checkpoint/mesh.py), which is what lets an
+  N-process recording restore bit-identically on an M-process or
+  single-process mesh.
 
 Multi-run sharing (run lineage). One store root may be SHARED by many runs:
 each run gets a manifest namespace (``run_id``), so checkpoint keys like
@@ -502,15 +504,17 @@ class CheckpointStore:
         is returned. Pass a pre-``resolve_manifest``'d `manifest` to skip
         re-resolution. Returned tensors own WRITABLE copies of the bytes.
 
-        v4 sharded manifests (mesh-sharded record) are not readable yet: the
-        sharded record/restore slice (ROADMAP queue 1, item 12) brings them.
-        ``stats_out`` is accepted for that slice's read accounting."""
+        v4 sharded manifests stitch through checkpoint/mesh.py: a DTensor
+        `like` leaf restores SELECTIVELY (this rank reads only the chunks its
+        shard overlaps) to a DTensor of the same mesh and placements; other
+        leaves stitch whole. ``stats_out`` (a dict, sharded path only)
+        receives read accounting: {chunks_read, bytes_by_shard}."""
         if manifest is None:
             manifest = self.resolve_manifest(key)
         if manifest.get("kind") == "sharded":
-            raise NotImplementedError(
-                f"{key!r} is a v4 sharded manifest; sharded restore arrives "
-                "with the mesh-sharded slice (ROADMAP queue 1, item 12)")
+            from repro_torch.checkpoint.mesh import stitch_tree
+            return stitch_tree(self, manifest, like=like,
+                               stats_out=stats_out)
         arrays = []
         for leaf in manifest["leaves"]:
             dt = np_dtype(leaf["dtype"])

@@ -16,8 +16,10 @@ checkpoint as a cross-run delta. The binding persists in
 records live in the `RunRegistry` beside the store. Sealed log segments
 feed the sqlite query index (`repro_torch.querydb`) as they seal.
 
-Mesh-sharded and multi-process record or replay are later slices (ROADMAP
-queue 1, items 12-13) and raise NotImplementedError here.
+Mesh-sharded record runs as a fleet (one process per DeviceMesh position,
+``distributed=``): every process derives the same run identity, checkpoints
+its own shards and logs into its own staging index; the lead alone probes
+the store, stitches the v4 manifests and finalizes the registry.
 """
 from __future__ import annotations
 
@@ -73,10 +75,32 @@ class FlorContext:
                  distributed=False, stitch_timeout_s: float = 30.0):
         if mode not in ("record", "replay"):
             raise ValueError(f"mode must be 'record' or 'replay', got {mode!r}")
-        if mesh is not None or distributed:
-            raise NotImplementedError(
-                "mesh-sharded / multi-process record and replay are not "
-                "ported yet (ROADMAP queue 1, items 12-13)")
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise ValueError(f"mesh must be a torch.distributed "
+                                 f"DeviceMesh, got {type(mesh).__name__}")
+        if distributed and mesh is None:
+            raise ValueError("distributed record requires mesh= (the "
+                             "DeviceMesh spanning every process)")
+        # ---- fleet record (one process per mesh position) ----
+        # `distributed` is False, True (read the fleet shape from the
+        # initialized torch.distributed default group) or an explicit
+        # parallel.rendezvous.ProcessGroup. Every process derives the SAME
+        # run identity; only process 0 (the lead) probes the store,
+        # stitches v4 manifests and finalizes the registry.
+        self.dist_group = None
+        self.rendezvous = None
+        if mode == "record" and distributed:
+            from repro_torch.parallel.rendezvous import (ProcessGroup,
+                                                         current_group)
+            self.dist_group = distributed \
+                if isinstance(distributed, ProcessGroup) else current_group()
+            # give each record process a distinct worker identity so
+            # per-process artifacts (controller meta, staging dbs) never
+            # collide; single-process record keeps pid as passed
+            pid = self.dist_group.process_id
+        self._is_lead = self.dist_group is None or self.dist_group.is_lead
         if ckpt_quantize_slots:
             _deprecated(
                 "ckpt_quantize_slots is deprecated: declare WHAT error each "
@@ -121,6 +145,15 @@ class FlorContext:
                 # is a crash-restart/resume, not a new run: forking a fresh
                 # namespace would orphan the run's own checkpoints
                 self.run_id = saved["run_id"]
+            elif self.dist_group is not None \
+                    and self.dist_group.num_processes > 1:
+                # every process of the fleet must derive the SAME id with no
+                # coordination channel yet: a deterministic name from the
+                # (shared) run dir. Peers registering it concurrently land
+                # on the resume path (same run_dir/namespace) — never a
+                # collision, never a random retry that would fork the fleet
+                self.run_id = "dist-" + os.path.basename(
+                    os.path.abspath(run_dir).rstrip("/"))
             else:
                 self.run_id = generate_run_id()
                 generated = True
@@ -176,8 +209,21 @@ class FlorContext:
             self.parent_run = parent_run or saved.get("parent_run")
             self.registry = RunRegistry(self.store_root)
             self._registered = False
-        self.store = CheckpointStore(self.store_root, run_id=self.namespace)
-        if mode == "record":
+        # FLOR_PREFER_SHARDS="0,2": read-affinity ordering over the store's
+        # shard pools — a replay host of a fleet reads its own block of
+        # pools first (content addressing keeps every pool valid regardless)
+        prefer = [s.strip() for s in
+                  os.environ.get("FLOR_PREFER_SHARDS", "").split(",")
+                  if s.strip()]
+        self.store = CheckpointStore(self.store_root, run_id=self.namespace,
+                                     prefer_shards=prefer or None)
+        if self.dist_group is not None \
+                and self.dist_group.num_processes > 1:
+            from repro_torch.parallel.rendezvous import StitchRendezvous
+            self.rendezvous = StitchRendezvous(
+                self.store_root, self.run_id, self.dist_group,
+                timeout_s=stitch_timeout_s)
+        if mode == "record" and self._is_lead:
             self._snapshot_source()
         self.warmstart_stats: dict[str, dict] = {}
         if adaptive and mode == "record":
@@ -185,9 +231,21 @@ class FlorContext:
             # measured the store's throughput: reuse the persisted figure and
             # skip the ~8MB probe write; fresh stores still calibrate once
             calib = self.store.get_meta("store_calib")
+            if not (calib and calib.get("write_bps")) \
+                    and not self._is_lead:
+                # only the lead probes a fleet's store (two concurrent
+                # probes would race the same __calib__ manifest); peers
+                # briefly wait for its figure, then fall back to defaults
+                deadline = time.monotonic() + min(5.0,
+                                                  float(stitch_timeout_s))
+                while time.monotonic() < deadline:
+                    calib = self.store.get_meta("store_calib")
+                    if calib and calib.get("write_bps"):
+                        break
+                    time.sleep(0.05)
             if calib and calib.get("write_bps"):
                 self.controller.write_bps = float(calib["write_bps"])
-            else:
+            elif self._is_lead:
                 calib = self._calibrate_store()
                 calib["measured_at"] = time.time()
                 self.store.put_meta("store_calib", calib)
@@ -201,11 +259,20 @@ class FlorContext:
             quantize_slots=ckpt_quantize_slots,
             error_bounds=dict(ckpt_error_bounds or {}),
             overlap=ckpt_overlap,
+            mesh=mesh, shard_axes=ckpt_shard_axes,
+            dist=self.rendezvous,
             on_materialized=self._on_materialized) \
             if mode == "record" else None
         # backward-compat handle (benchmarks call ctx.writer.drain())
         self.writer = self.pipeline.writer if self.pipeline else None
-        stream = "record" if mode == "record" else f"replay_p{pid}"
+        # fleet record: non-lead processes run the same SPMD program and
+        # would log the same rows — they keep a per-process debug stream
+        # (invisible to run_logs, which reads record.jsonl + replay_*) so
+        # the query surface sees exactly one copy, the lead's
+        if mode == "record":
+            stream = "record" if self._is_lead else f"record_p{pid}"
+        else:
+            stream = f"replay_p{pid}"
         # incremental query-index maintenance (repro_torch.querydb): sealed
         # log segments are ingested into <store_root>/index/flor.db the
         # moment they seal, off the step path, drawing from the same epsilon
@@ -218,6 +285,10 @@ class FlorContext:
                 self.log_indexer = SegmentIndexer(
                     self.store_root, self.run_id, stream,
                     registry=self.registry,
+                    # fleet record: each process ingests into its OWN
+                    # staging db and merges it into flor.db at finish —
+                    # seal-time writers never contend on the shared index
+                    staging=(pid if self.rendezvous is not None else None),
                     on_overhead=self.controller.observe_logging)
                 if mode == "replay":
                     # this attempt rotates its stream below (fresh=True):
@@ -550,14 +621,25 @@ class FlorContext:
             log_err = e
         final_keys: dict[str, str] = {}
         if self.pipeline is not None:
+            # tips are read AFTER close(): a fleet's pipeline rolls each
+            # scope's tip back past keys whose stitch never happened, and
+            # final_keys must never name an unstitched checkpoint
             pipeline, self.pipeline = self.pipeline, None
             pipeline.close()
             self.writer = None
             final_keys = {s: k for s, k in pipeline._last_key.items() if k}
+        if self.rendezvous is not None:
+            # all stitches are settled (pipeline closed above): stop the
+            # liveness beater so a dead-on-exit process cannot look alive
+            self.rendezvous.close()
         if self._registered:
-            # the per-scope tips are what a derived run warm-starts from
-            self.registry.finalize(self.run_id, final_keys=final_keys,
-                                   status=status)
+            # the per-scope tips are what a derived run warm-starts from.
+            # Only the LEAD of a fleet finalizes — concurrent finalize
+            # read-modify-writes would lose each other's updates, and every
+            # process computes the same tips anyway
+            if self._is_lead:
+                self.registry.finalize(self.run_id, final_keys=final_keys,
+                                       status=status)
             self._registered = False
         if self.log_indexer is not None:
             # log closed above (final segment sealed+ingested), registry
@@ -565,7 +647,7 @@ class FlorContext:
             # whole store's listing is index-serviceable. Best-effort.
             indexer, self.log_indexer = self.log_indexer, None
             indexer.finish(self.registry)
-        if self._block_profile:
+        if self._block_profile and self._is_lead:
             # merge over any previous profile so a resumed run keeps the
             # epochs it recorded before the restart
             prev = (self.store.get_meta("block_profile") or {}).get("blocks",

@@ -98,19 +98,20 @@ class RecordSpec:
     ckpt_quantize_slots: tuple = ()    # slots stored lossy-q8 (deprecated)
     ckpt_error_bounds: tuple = ()      # {slot: atol} adaptive encodings
     ckpt_overlap: bool = False         # overlap fused pass with the step
-    # mesh-sharded record: with a jax.sharding.Mesh here, each device shard
-    # fingerprints/gathers its OWN buffer and writes to its host's store
-    # shard (v4 stitching manifests; restore reshards onto any mesh).
-    # ckpt_shard_axes picks the mesh axes that map onto store shards
-    # (default () = all axes: one store shard per device).
+    # mesh-sharded record: with a torch.distributed DeviceMesh here (and the
+    # state's leaves placed on it as DTensors), each shard fingerprints /
+    # gathers its OWN buffer and writes to its store shard (v4 stitching
+    # manifests; restore reshards onto any mesh). ckpt_shard_axes picks the
+    # mesh axes that map onto store shards (default () = all axes: one
+    # store shard per mesh position).
     mesh: Optional[Any] = None
     ckpt_shard_axes: tuple = ()
-    # true multi-process record (jax.distributed): every REAL host runs the
-    # fused pass over its local shards and publishes member manifests into
+    # fleet record (one process per mesh position): every process runs the
+    # fused pass over its own shards and publishes member manifests into
     # its own pool; process 0 stitches the v4 through a file rendezvous.
-    # ``distributed=True`` reads the fleet shape from the initialized jax
-    # runtime (process_index/process_count); a
-    # parallel.rendezvous.ProcessGroup pins it explicitly. A host past
+    # ``distributed=True`` reads the fleet shape from the initialized
+    # torch.distributed default group (rank/world size); a
+    # parallel.rendezvous.ProcessGroup pins it explicitly. A process past
     # ``stitch_timeout_s`` marks the checkpoint incomplete (replay skips
     # it) instead of wedging training.
     distributed: Any = False
@@ -160,26 +161,34 @@ class RecordSpec:
                              "axis names, not a bare string")
         object.__setattr__(self, "ckpt_shard_axes",
                            tuple(self.ckpt_shard_axes))
-        if self.mesh is not None and not hasattr(self.mesh, "devices"):
-            raise ValueError(f"mesh must be a jax.sharding.Mesh, got "
-                             f"{type(self.mesh).__name__}")
+        if self.mesh is not None and not _is_device_mesh(self.mesh):
+            raise ValueError(f"mesh must be a torch.distributed DeviceMesh, "
+                             f"got {type(self.mesh).__name__}")
+        if self.mesh is not None and not self.mesh.mesh_dim_names:
+            raise ValueError("mesh needs mesh_dim_names (the logical axes "
+                             "resolve against them)")
         if self.ckpt_shard_axes and self.mesh is None:
             raise ValueError("ckpt_shard_axes requires mesh=")
         if self.mesh is not None and self.ckpt_shard_axes:
-            names = {str(a) for a in self.mesh.axis_names}
+            names = {str(a) for a in self.mesh.mesh_dim_names}
             bad = [a for a in self.ckpt_shard_axes if str(a) not in names]
             if bad:
                 raise ValueError(f"ckpt_shard_axes {bad} not in mesh axes "
                                  f"{sorted(names)}")
         if self.distributed and self.mesh is None:
-            raise ValueError("distributed record requires mesh= (the global "
-                             "device mesh spanning every process)")
+            raise ValueError("distributed record requires mesh= (the "
+                             "DeviceMesh spanning every process)")
         if not float(self.stitch_timeout_s) > 0:
             raise ValueError(f"stitch_timeout_s must be > 0, got "
                              f"{self.stitch_timeout_s!r}")
 
     def to_kwargs(self) -> dict:
         return {f.name: getattr(self, f.name) for f in fields(self)}
+
+
+def _is_device_mesh(mesh) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(mesh, DeviceMesh)
 
 
 @dataclass(frozen=True)

@@ -74,8 +74,11 @@ against an edited copy.
 Legacy surface: ``flor.init/finish/generator/skipblock`` keep working as
 thin shims but warn with ``FlorDeprecationWarning``.
 
-Mesh-sharded and multi-process runs are later slices (ROADMAP queue 1,
-items 12-13) and raise NotImplementedError.
+Mesh-sharded record: ``RecordSpec(mesh=<DeviceMesh>, distributed=<group>)``
+in each process of a fleet (one per mesh position), with the checkpointed
+state placed on the mesh as DTensors (``repro_torch.parallel.place``); the
+lead stitches v4 manifests, and ``repro_torch.checkpoint.
+restore_sharded_tree`` restores any of them onto another mesh.
 """
 from __future__ import annotations
 

@@ -22,8 +22,12 @@ checkpoints its visits skip onto it.
 a copy of the driving script; the current file (or ``--current-src``) is
 diffed against it, added lines map to their innermost enclosing loop, and
 non-additive edits are surfaced as a HARD WARNING. ``--hosts N`` places the
-tasks on N modelled host queues (placement only); a real multi-process
-replay fleet (``--num-processes > 1``) is a later slice.
+tasks on N modelled host queues (placement only). A replay fleet
+(``--num-processes N``, each host started with its ``--process-id``) runs
+this launcher on every host against the shared store: each derives the same
+plan and LPT host partition, executes its own share with read affinity to
+its block of store shards (``--prefer-shards``), and host 0 merges once
+every host has arrived at a store-file barrier (``--merge-timeout``).
 """
 from __future__ import annotations
 
@@ -32,6 +36,10 @@ import os
 import subprocess
 import sys
 import time
+
+
+# barrier pseudo-key multi-host replay uses for the merge handoff
+MERGE_BARRIER = "replay.merge"
 
 
 def _parse_segments(spec: str) -> list:
@@ -192,8 +200,20 @@ def main(argv=None):
                     help="model N replay hosts: tasks are LPT-placed onto "
                          "host queues and workers steal only when their "
                          "home queue drains")
+    ap.add_argument("--process-id", type=int, default=0,
+                    help="this host's id in a multi-process replay fleet "
+                         "(every host runs this launcher)")
     ap.add_argument("--num-processes", type=int, default=1,
-                    help="replay fleet size; > 1 is not ported yet")
+                    help="replay fleet size; > 1 partitions the planned "
+                         "tasks across hosts — each host executes only its "
+                         "share, host 0 merges after a store-file barrier")
+    ap.add_argument("--merge-timeout", type=float, default=600.0,
+                    help="seconds host 0 waits for every host's share "
+                         "before failing the merge")
+    ap.add_argument("--prefer-shards", default=None,
+                    help="comma-separated store shard ids this host reads "
+                         "first (default under --num-processes: a "
+                         "contiguous block of the recorded shards)")
     ap.add_argument("--straggler-factor", type=float, default=None,
                     help="speculatively re-issue a task running this many "
                          "times longer than expected (0 = off; default: "
@@ -206,10 +226,6 @@ def main(argv=None):
                     help="run the deferred correctness check after replay")
     args = ap.parse_args(argv)
 
-    if args.num_processes > 1:
-        raise NotImplementedError(
-            "multi-process replay (--num-processes > 1) is not ported yet "
-            "(ROADMAP queue 1, item 13)")
     if args.pid is not None:
         worker_main(args)
         return
@@ -249,18 +265,55 @@ def main(argv=None):
                   epochs=[s.epoch for s in sh],
                   est_cost_s=share_cost(plan, sh))
              for tid, sh in enumerate(shares)]
-    n_hosts = max(1, args.hosts)
+    # ---- multi-host replay (--num-processes > 1): every host runs this
+    # launcher against the shared store; the plan and the LPT host
+    # assignment are deterministic, so each host independently derives the
+    # SAME partition and executes only its share. Host 0 merges once every
+    # host has arrived at the store-file barrier.
+    fleet = max(1, args.num_processes)
+    n_hosts = fleet if fleet > 1 else max(1, args.hosts)
     if n_hosts > 1:
         assign_hosts(tasks, n_hosts)
     for t in tasks:
         print(f"  task {t.task_id}: epochs {t.epochs} "
               f"({len(t.visits)} visits, est {t.est_cost_s:.2f}s"
               + (f", host {t.host}" if n_hosts > 1 else "") + ")")
-    plan.save(assignments={str(t.task_id): {"epochs": t.epochs,
-                                            "visits": t.visits,
-                                            "est_cost_s": t.est_cost_s,
-                                            "host": t.host}
-                           for t in tasks})
+    rdv = None
+    my_tasks = tasks
+    if fleet > 1:
+        from repro_torch.parallel.rendezvous import (ProcessGroup,
+                                                     StitchRendezvous)
+        from repro_torch.replay import open_run_store
+        store, run_meta = open_run_store(args.run_dir)
+        rdv = StitchRendezvous(store.root,
+                               run_meta.get("run_id") or "replay",
+                               ProcessGroup(args.process_id, fleet),
+                               timeout_s=args.merge_timeout)
+        # a stale marker from a crashed previous invocation must never
+        # satisfy this round's barrier on our behalf
+        rdv.retract(MERGE_BARRIER)
+        my_tasks = [t for t in tasks if t.host == args.process_id]
+        print(f"host {args.process_id}/{fleet}: executing "
+              f"{len(my_tasks)}/{len(tasks)} task(s)")
+        # shard-pool read affinity: this host reads its share of the
+        # recorded store shards first (content addressing keeps every pool
+        # valid); the workers inherit it through the environment
+        if args.prefer_shards is not None:
+            os.environ["FLOR_PREFER_SHARDS"] = args.prefer_shards
+        else:
+            n_store = int((plan.mesh or {}).get("n_store_shards") or 0)
+            mine = [str(h) for h in range(n_store)
+                    if h * fleet // n_store == args.process_id]
+            if mine:
+                os.environ["FLOR_PREFER_SHARDS"] = ",".join(mine)
+    elif args.prefer_shards:
+        os.environ["FLOR_PREFER_SHARDS"] = args.prefer_shards
+    if rdv is None or rdv.group.is_lead:
+        plan.save(assignments={str(t.task_id): {"epochs": t.epochs,
+                                                "visits": t.visits,
+                                                "est_cost_s": t.est_cost_s,
+                                                "host": t.host}
+                               for t in tasks})
     if args.plan_only:
         return
 
@@ -305,30 +358,54 @@ def main(argv=None):
               f"{straggler:g}x horizon)")
 
     t0 = time.time()
-    ex = DynamicExecutor(tasks, run_task, args.nworkers,
+    ex = DynamicExecutor(my_tasks, run_task, args.nworkers,
                          straggler_factor=straggler,
-                         on_complete=on_complete, n_hosts=n_hosts)
+                         on_complete=on_complete,
+                         n_hosts=1 if fleet > 1 else n_hosts)
     try:
         done = ex.run()
     except TaskFailure as e:
         print(f"parallel replay FAILED: {e}")
         sys.exit(1)
     print(f"parallel replay (planned, {args.partition}): "
-          f"{args.nworkers} workers / {len(tasks)} tasks, "
+          f"{args.nworkers} workers / {len(my_tasks)} tasks, "
           f"wall {time.time() - t0:.2f}s")
     _print_store_summary(args.run_dir)
 
     # ---- merge per plan segment ----
     # owner log = the pid run_task RETURNED for the winning attempt; the
     # logs of superseded attempts (failed first tries, cancelled straggler
-    # duplicates) are dropped so no later raw-file check reads them
-    owners = [(f"replay_p{done[t.task_id][1]}", t.epochs) for t in tasks]
+    # duplicates) are dropped so no later raw-file check reads them. Task
+    # ids are fleet-global, so each host only touches its own logs.
+    owners = [(f"replay_p{done[t.task_id][1]}", t.epochs) for t in my_tasks]
     keep = {f"{src}.jsonl" for src, _ in owners}
-    for t in tasks:
+    for t in my_tasks:
         for attempt in range(1, ex.max_attempts + 1):
             fn = f"replay_p{t.task_id + (attempt - 1) * pid_stride}.jsonl"
             if fn not in keep:
                 remove_stream(os.path.join(args.run_dir, "logs", fn))
+
+    if rdv is not None:
+        # hand this host's owner map to host 0 through the store barrier;
+        # only the lead merges (and only after EVERY host arrived, so the
+        # merge never reads a log a straggler is still writing)
+        rdv.arrive(MERGE_BARRIER,
+                   {"process": rdv.group.process_id,
+                    "owners": [[src, list(eps)] for src, eps in owners]})
+        if not rdv.group.is_lead:
+            print(f"host {rdv.group.process_id}: share complete "
+                  f"({len(owners)} task log(s)); host 0 merges")
+            rdv.close()
+            return
+        got = rdv.await_all(MERGE_BARRIER, timeout_s=args.merge_timeout)
+        rdv.close()
+        if got is None:
+            print(f"replay merge FAILED: a host missed the merge barrier "
+                  f"within {args.merge_timeout:.0f}s")
+            sys.exit(1)
+        rdv.clear(MERGE_BARRIER)
+        owners = [(src, eps) for marker in got
+                  for src, eps in (marker.get("owners") or [])]
     merged = flor.merge_replay_logs(args.run_dir, owners, out_path=True)
     print(f"merged {len(merged)} log rows from {len(owners)} task log(s) "
           f"-> logs/merged_replay.jsonl")

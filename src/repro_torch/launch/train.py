@@ -21,8 +21,17 @@ store and chain them —
 The warm start restores the ancestor's final checkpoint onto the card and
 seeds the delta pipeline there. Inspect, query and reclaim with
 ``python -m repro_torch.launch.runs list|show|diff|logs|pivot|gc|rm``.
-Multi-process record is a later slice of this package (ROADMAP queue 1,
-item 13).
+
+Fleet record: ``--mesh AxB --num-processes A*B``, one process per mesh
+position (a torch ``DeviceMesh`` has one process per position), each
+started with its own ``--process-id`` and the same ``--coordinator``
+(``host:port`` of process 0's gloo rendezvous; the processes may share one
+card). Every process trains the same replicated state; the record runs
+sharded over the mesh (``RecordSpec(mesh=, distributed=)``): each process
+checkpoints only the shards it owns and process 0 stitches the v4
+manifests. The launcher places the state on no layout of its own, as the
+reference launcher does, so its replicated leaves are filed by process 0. A
+relaunch resumes from the last stitched epoch.
 """
 from __future__ import annotations
 
@@ -63,6 +72,25 @@ def main(argv=None):
                          "bytes to the checkpoint store, logging a ref row "
                          "(0 disables)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default=None,
+                    help="AxB: a (data, model) DeviceMesh of A*B positions, "
+                         "one process each (needs --num-processes A*B)")
+    ap.add_argument("--coordinator", default="127.0.0.1:12355",
+                    help="host:port of process 0's gloo rendezvous for a "
+                         "fleet record")
+    ap.add_argument("--process-id", type=int, default=0,
+                    help="this process's id in the record fleet")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="record fleet size; > 1 turns on the fleet record: "
+                         "each process checkpoints only its own shards, "
+                         "process 0 stitches the v4 manifests")
+    ap.add_argument("--stitch-timeout", type=float, default=30.0,
+                    help="seconds the stitch rendezvous waits for every "
+                         "process before marking a checkpoint incomplete")
+    ap.add_argument("--ckpt-shard-axes", default="",
+                    help="comma-separated mesh axes mapping onto store "
+                         "shards (default: all axes — one shard per "
+                         "position)")
     ap.add_argument("--store-root", default=None,
                     help="SHARED checkpoint store root (multi-run lineage); "
                          "default: private <run-dir>/store")
@@ -72,12 +100,23 @@ def main(argv=None):
                     help="ancestor run id: warm-start from its final "
                          "checkpoint and record cross-run deltas")
     args = ap.parse_args(argv)
+    mesh_shape = None
+    if args.mesh:
+        mesh_shape = tuple(int(x) for x in args.mesh.split("x"))
+        if len(mesh_shape) != 2:
+            ap.error(f"--mesh {args.mesh}: expected AxB (data x model)")
+        if mesh_shape[0] * mesh_shape[1] != args.num_processes:
+            ap.error(f"--mesh {args.mesh} needs --num-processes "
+                     f"{mesh_shape[0] * mesh_shape[1]}: a DeviceMesh has "
+                     f"one process per position (got --num-processes "
+                     f"{args.num_processes})")
+    elif args.num_processes > 1:
+        ap.error("--num-processes > 1 requires --mesh (the DeviceMesh "
+                 "spanning every process)")
 
     import torch
 
     import repro_torch.configs as C
-    import repro_torch.flor as flor
-    from repro_torch.data import synthetic_batch
     from repro_torch.train.step import build_train_step
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
@@ -85,6 +124,36 @@ def main(argv=None):
         cfg = C.with_layers(cfg, args.layers)
     init_state, ts = build_train_step(cfg, device=args.device)
     state = init_state(args.seed)
+    if mesh_shape is None:
+        return _record(args, cfg, state, ts, None, None)
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.parallel.rendezvous import init_distributed
+    group = init_distributed(args.coordinator, args.process_id,
+                             args.num_processes)
+    try:
+        mesh = DeviceMesh(torch.device(args.device).type,
+                          torch.arange(args.num_processes).reshape(
+                              mesh_shape),
+                          mesh_dim_names=("data", "model"))
+        print(f"distributed record: process {group.process_id}/"
+              f"{group.num_processes} on mesh {args.mesh}", flush=True)
+        out = _record(args, cfg, state, ts, mesh, group)
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _record(args, cfg, state, ts, mesh, group) -> dict:
+    """The record (or, with ``--no-flor``, the vanilla run) from ``state``;
+    ``mesh`` and ``group`` are None outside a fleet."""
+    import torch
+
+    import repro_torch.flor as flor
+    from repro_torch.checkpoint.store import _safe
+    from repro_torch.data import synthetic_batch
 
     if args.no_flor:
         t0 = time.time()
@@ -101,10 +170,15 @@ def main(argv=None):
 
     with flor.Session(
             args.run_dir, mode="record",
-            record=flor.RecordSpec(epsilon=args.epsilon,
-                                   adaptive=not args.no_adaptive,
-                                   async_log=not args.sync_log,
-                                   log_spill_bytes=args.log_spill_bytes),
+            record=flor.RecordSpec(
+                epsilon=args.epsilon, adaptive=not args.no_adaptive,
+                async_log=not args.sync_log,
+                log_spill_bytes=args.log_spill_bytes, mesh=mesh,
+                ckpt_shard_axes=tuple(a for a in
+                                      args.ckpt_shard_axes.split(",") if a)
+                if mesh is not None else (),
+                distributed=group or False,
+                stitch_timeout_s=args.stitch_timeout),
             lineage=flor.LineageSpec(store_root=args.store_root,
                                      run_id=args.run_id,
                                      parent_run=args.parent_run)) as sess:
@@ -115,10 +189,16 @@ def main(argv=None):
             # cross-run delta against it
             print(f"warm start from run {ctx.parent_run!r}", flush=True)
             state = sess.warm_start("train", like=state)
-        # crash-restart: resume from the latest epoch checkpoint if any
+        # crash-restart: resume from the latest epoch checkpoint if any.
+        # Shard MEMBER manifests (<key>.shard<h>) and checkpoints a fleet
+        # record marked incomplete never anchor a resume — only stitched
+        # (or flat) epoch keys count as done.
+        inc = {_safe(k) for k in
+               (ctx.store.get_meta("incomplete_ckpts") or {})
+               .get("keys") or ()}
         done = set()
         for k in ctx.store.list_keys():
-            if "_at_" in k:
+            if "_at_" in k and ".shard" not in k and k not in inc:
                 try:
                     done.add(int(k.split("_at_")[1].split(".")[0]))
                 except ValueError:

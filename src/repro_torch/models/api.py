@@ -13,10 +13,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import encdec as encdec_mod
-from repro_torch.models import mamba
+from repro_torch.models import mamba, mla
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import cache_from_spec, stack_cache_spec
-from repro_torch.models.params import init_params
+from repro_torch.models.params import axes_tree, init_params, shape_tree
 
 # encoder length of the enc-dec decode cells (about 30 s of audio frames
 # after the frontend's subsampling; the frontend itself is a stub)
@@ -35,6 +35,13 @@ class Model:
 
     def param_spec(self):
         return self._spec
+
+    def param_shapes(self):
+        return shape_tree(self._spec)
+
+    def param_axes(self):
+        """Each parameter's logical axes (the nesting of ``param_spec``)."""
+        return axes_tree(self._spec)
 
     def init(self, seed: int, device):
         """Materialize the parameter dict on ``device`` from ``seed``."""
@@ -93,7 +100,77 @@ class Model:
             return out
         raise ValueError(fam)
 
+    def _attn_cache_axes(self):
+        return mla.mla_cache_axes() if self.cfg.mla \
+            else attn.cache_logical_axes()
+
+    def cache_axes(self):
+        """Logical axes of every ``cache_spec`` leaf, with the same nesting
+        (a stack of layers adds a leading ``"layer"`` axis)."""
+        cfg = self.cfg
+        fam = cfg.family
+
+        def stack(ax):
+            if isinstance(ax, dict):
+                return {k: stack(v) for k, v in ax.items()}
+            return ("layer",) + ax
+
+        if fam == "audio":
+            return encdec_mod.encdec_cache_axes(cfg)
+        if fam in ("dense", "vlm"):
+            return {"layers": stack(self._attn_cache_axes())}
+        if fam == "moe":
+            out = {"layers": stack(self._attn_cache_axes())}
+            if cfg.moe.first_dense_layers:
+                out["dense_layers"] = stack(self._attn_cache_axes())
+            return out
+        if fam == "ssm":
+            return {"layers": stack(
+                mamba.mamba1_cache_axes() if cfg.ssm.version == 1
+                else mamba.mamba2_cache_axes())}
+        if fam == "hybrid":
+            _, _, tail = tfm._hybrid_shape(cfg)
+            out = {"groups": stack(stack(mamba.mamba2_cache_axes())),
+                   "shared_attn": stack(attn.cache_logical_axes())}
+            if tail:
+                out["tail"] = stack(mamba.mamba2_cache_axes())
+            return out
+        raise ValueError(fam)
+
     def init_cache(self, batch: int, max_len: int, device):
         """Empty caches on ``device``: ``slot_pos`` -1, the rest zeros."""
         return cache_from_spec(self.cache_spec(batch, max_len),
                                torch.device(device))
+
+    # ------------------------------------------------------------ inputs --
+    def input_specs(self, shape) -> dict:
+        """Global (torch.Size, dtype) of the step inputs for a
+        ``configs.base.ShapeSpec``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        d = cfg.d_model
+        adt = getattr(torch, cfg.dtype)
+        if shape.kind == "decode":
+            return {"tokens": (torch.Size((B, 1)), torch.int32),
+                    "pos": (torch.Size(()), torch.int32)}
+        if cfg.family == "audio":
+            half = S // 2
+            return {"enc_embeds": (torch.Size((B, half, d)), adt),
+                    "dec_tokens": (torch.Size((B, half)), torch.int32)}
+        if cfg.family == "vlm":
+            F = cfg.frontend_tokens
+            return {"embeds": (torch.Size((B, F, d)), adt),
+                    "tokens": (torch.Size((B, S - F)), torch.int32)}
+        return {"tokens": (torch.Size((B, S)), torch.int32)}
+
+    def input_axes(self, shape) -> dict:
+        """Logical axes of ``input_specs``' leaves."""
+        cfg = self.cfg
+        b = "batch_dp3" if cfg.dense_layout == "dp" else "batch"
+        if shape.kind == "decode":
+            return {"tokens": (b, None), "pos": ()}
+        if cfg.family == "audio":
+            return {"enc_embeds": (b, None, None), "dec_tokens": (b, None)}
+        if cfg.family == "vlm":
+            return {"embeds": (b, None, None), "tokens": (b, None)}
+        return {"tokens": (b, None)}

@@ -198,6 +198,15 @@ def init_cache_spec(cfg, batch: int, max_len: int, dtype):
             "slot_pos": (torch.Size((smax,)), torch.int32)}
 
 
+def cache_logical_axes():
+    """Logical axes of one layer's KV cache leaves."""
+    return {
+        "k": ("batch", "cache_seq", "kv_heads", None),
+        "v": ("batch", "cache_seq", "kv_heads", None),
+        "slot_pos": (None,),
+    }
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype, device):
     """An empty cache: zeros, every slot at position -1."""
     return cache_from_spec(init_cache_spec(cfg, batch, max_len, dtype),

@@ -112,6 +112,17 @@ def encdec_cache_spec(cfg, batch: int, max_len: int, enc_len: int, dtype):
             "cross_k": cross, "cross_v": cross}
 
 
+def encdec_cache_axes(cfg):
+    """Logical axes of the decoder caches: self-attention K/V per layer and
+    the encoder's cross K/V."""
+    ax = {k: ("layer",) + v for k, v in attn.cache_logical_axes().items()}
+    return {
+        "self": ax,
+        "cross_k": ("layer", "batch", None, "kv_heads", None),
+        "cross_v": ("layer", "batch", None, "kv_heads", None),
+    }
+
+
 def encdec_prefill(cfg, params, batch, max_len: int):
     """Encode the source once; consume the decoder prompt. Returns (caches,
     the last position's logits [B, vocab_size])."""

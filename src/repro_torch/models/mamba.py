@@ -198,6 +198,11 @@ def mamba1_cache_spec(cfg, batch: int, dtype):
             "ssm": (torch.Size((batch, din, s.state_dim)), torch.float32)}
 
 
+def mamba1_cache_axes():
+    """Logical axes of one Mamba1 layer's conv and SSM states."""
+    return {"conv": ("batch", None, "dinner"), "ssm": ("batch", "dinner", None)}
+
+
 def mamba1_decode(cfg, p, x, cache):
     """x [B,1,d] -> (out [B,1,d], cache): one O(1) state update, written
     into ``cache`` in place."""
@@ -358,6 +363,12 @@ def mamba2_cache_spec(cfg, batch: int, dtype):
                                  din + 2 * s.state_dim)), dtype),
             "ssm": (torch.Size((batch, nh, s.head_dim, s.state_dim)),
                     torch.float32)}
+
+
+def mamba2_cache_axes():
+    """Logical axes of one Mamba2 layer's conv and SSM states."""
+    return {"conv": ("batch", None, "dinner"),
+            "ssm": ("batch", "act_heads", None, None)}
 
 
 def mamba2_decode(cfg, p, x, cache):

@@ -99,6 +99,13 @@ def mla_cache_spec(cfg, batch: int, max_len: int, dtype):
     }
 
 
+def mla_cache_axes():
+    """Logical axes of one layer's latent cache leaves."""
+    return {"c_kv": ("batch", "cache_seq", None),
+            "k_r": ("batch", "cache_seq", None),
+            "slot_pos": (None,)}
+
+
 def mla_init_cache(cfg, batch: int, max_len: int, dtype, device):
     return cache_from_spec(mla_cache_spec(cfg, batch, max_len, dtype),
                            device)

@@ -44,6 +44,16 @@ def stack_spec(tree, n: int):
         s, shape=(n,) + s.shape, axes=("layer",) + s.axes), tree)
 
 
+def axes_tree(tree):
+    """The nested dict of each parameter's logical axes."""
+    return _map_specs(lambda _, s: s.axes, tree)
+
+
+def shape_tree(tree):
+    """The nested dict of each parameter's shape."""
+    return _map_specs(lambda _, s: torch.Size(s.shape), tree)
+
+
 def init_params(tree, seed: int, default_dtype: str, device) -> dict:
     """Materialize params on ``device``. Each leaf draws from its own
     ``torch.Generator`` seeded from (seed, blake2b of the leaf path), so the

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import os
 import sqlite3
+import time
 
 SCHEMA_VERSION = 1
 
@@ -89,6 +90,26 @@ CREATE INDEX IF NOT EXISTS ix_records_key ON records(key, run_id);
 """
 
 
+BUSY_TIMEOUT_S = 30.0
+
+
+def _set_wal(conn: sqlite3.Connection):
+    """Switch to WAL. sqlite answers "database is locked" at once, without
+    its busy handler, when another connection holds a lock on a database
+    still in rollback mode — processes of a fleet creating the same fresh
+    index at finish hit this — so wait for the lock as the busy timeout
+    would."""
+    deadline = time.monotonic() + BUSY_TIMEOUT_S
+    while True:
+        try:
+            conn.execute("PRAGMA journal_mode=WAL")
+            return
+        except sqlite3.OperationalError as e:
+            if "locked" not in str(e) or time.monotonic() >= deadline:
+                raise
+            time.sleep(0.02)
+
+
 def connect(db_path: str, create: bool = False) -> sqlite3.Connection:
     """Open (optionally creating) the index database: WAL mode so one
     background writer and any number of query readers coexist without
@@ -105,8 +126,9 @@ def connect(db_path: str, create: bool = False) -> sqlite3.Connection:
         os.makedirs(os.path.dirname(db_path), exist_ok=True)
     elif not os.path.exists(db_path):
         raise FileNotFoundError(db_path)
-    conn = sqlite3.connect(db_path, timeout=30.0, check_same_thread=False)
-    conn.execute("PRAGMA journal_mode=WAL")
+    conn = sqlite3.connect(db_path, timeout=BUSY_TIMEOUT_S,
+                           check_same_thread=False)
+    _set_wal(conn)
     conn.execute("PRAGMA synchronous=NORMAL")
     conn.executescript(DDL)
     cur = conn.execute("SELECT v FROM meta WHERE k='schema_version'")

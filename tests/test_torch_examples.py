@@ -3,7 +3,9 @@ with ``--device cpu``: examples/torch_quickstart.py records, then
 examples/torch_hindsight_replay.py replays the run with its outer probe
 only (every epoch restored) and with its inner probe (every epoch
 re-executed). Each replay must pass the deferred check and end on the
-recorded final state's digest, bit for bit."""
+recorded final state's digest, bit for bit. The serving example prints a
+request's greedy tokens, and the two mesh examples relaunch themselves as
+four-process gloo fleets."""
 import os
 import re
 import subprocess
@@ -78,3 +80,23 @@ def test_serve_example_prints_greedy_tokens(arch):
     finally:
         torch.set_num_threads(n)
     assert printed == str(want[0].tolist())
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("script,ok", [
+    ("torch_distributed_record.py", "DISTRIBUTED_RECORD_OK"),
+    ("torch_sharded_replay.py", "deferred check: ok=True compared=4 "
+                                "hindsight=16")])
+def test_fleet_examples_on_cpu(tmp_path, script, ok):
+    """The mesh examples relaunch themselves as gloo fleets: a (2, 2)
+    record with a crash round, and a (2, 2) record restored on (1, 4),
+    (4, 1) and unsharded."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    env.pop("LOCAL_RANK", None)
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "examples",
+                                                     script),
+                        "--device", "cpu", "--run-dir", str(tmp_path / "r")],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert ok in r.stdout

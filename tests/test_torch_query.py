@@ -333,3 +333,32 @@ def test_rows_equal_reference_on_same_store(mixed_store, engine):
     assert [(r["run_id"], r["loss"]) for r in piv] == [
         ("base", 2.0), ("base", 4.0), ("base", 6.0),
         ("ft1", 8.0), ("ft1", 10.0), ("ft1", 12.0)]
+
+
+def test_index_opens_while_another_connection_creates_it(tmp_path):
+    """Processes of a fleet create the same fresh index at finish. sqlite
+    refuses the switch to WAL at once ("database is locked", no busy
+    handler) while another connection holds a lock on a database still in
+    rollback mode; opening the index waits for that lock instead."""
+    import sqlite3
+    import threading
+    import time
+
+    path = str(tmp_path / "index" / "flor.db")
+    os.makedirs(os.path.dirname(path))
+    holder = sqlite3.connect(path, check_same_thread=False)
+    holder.execute("BEGIN IMMEDIATE")
+    holder.execute("CREATE TABLE held(x)")
+    with pytest.raises(sqlite3.OperationalError, match="locked"):
+        sqlite3.connect(path, timeout=30).execute("PRAGMA journal_mode=WAL")
+    release = threading.Timer(0.3, holder.commit)
+    release.start()
+    try:
+        t0 = time.monotonic()
+        idx = LogIndex(str(tmp_path), create=True)
+        assert time.monotonic() - t0 >= 0.2
+        assert idx.conn.execute("PRAGMA journal_mode").fetchone()[0] == "wal"
+        idx.close()
+    finally:
+        release.join()
+        holder.close()

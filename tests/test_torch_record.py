@@ -140,10 +140,16 @@ def test_launcher_without_device_flag_refuses_cpu(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    """Mesh-sharded / multi-process runs are later slices: they raise
-    instead of running something else."""
-    for kw in ({"mesh": object()}, {"distributed": True}):
-        with pytest.raises(NotImplementedError, match="items 12-13"):
-            flor.FlorContext(str(tmp_path / "m"), "record", **kw)
-    with pytest.raises(NotImplementedError, match="items 12-13"):
-        flor.FlorContext(str(tmp_path / "m"), "replay", mesh=object())
+    """A mesh must be a torch.distributed DeviceMesh, and a fleet record
+    (``distributed=``) needs one: both are refused before anything runs,
+    in the context and in ``RecordSpec`` alike."""
+    for mode in ("record", "replay"):
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            flor.FlorContext(str(tmp_path / "m"), mode, mesh=object())
+    with pytest.raises(ValueError, match="requires mesh"):
+        flor.FlorContext(str(tmp_path / "m"), "record", distributed=True)
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        flor.RecordSpec(mesh=object())
+    with pytest.raises(ValueError, match="requires mesh"):
+        flor.RecordSpec(distributed=True)
+    assert not os.path.exists(str(tmp_path / "m"))

@@ -348,10 +348,25 @@ def test_replay_launcher_without_device_flag_refuses_cpu(tmp_path):
     assert not os.path.exists(os.path.join(run, "replay.plan.json"))
 
 
-def test_multi_process_replay_is_not_ported(tmp_path):
+def test_multi_process_replay_is_not_ported(tmp_path, launcher_run,
+                                            capsys):
+    """``--num-processes 2`` runs: each host derives the same plan and
+    host partition and takes its own share (plan only here; the fleet's
+    full replay and merge are in test_torch_dist_record.py)."""
+    import shutil
+
     from repro_torch.launch import replay as launcher
-    with pytest.raises(NotImplementedError, match="item 13"):
-        launcher.main(["--run-dir", str(tmp_path), "--num-processes", "2"])
+    run = str(tmp_path / "run")
+    shutil.copytree(launcher_run, run)
+    for host in (1, 0):
+        launcher.main(LAUNCH + ["--device", "cpu", "--run-dir", run,
+                                "--nworkers", "2", "--probe", "train",
+                                "--num-processes", "2", "--process-id",
+                                str(host), "--plan-only"])
+    out = capsys.readouterr().out
+    assert "host 1/2: executing 1/2 task(s)" in out
+    assert "host 0/2: executing 1/2 task(s)" in out
+    assert os.path.exists(os.path.join(run, "replay.plan.json"))
 
 
 # ----------------------------------------------------------- cross-package

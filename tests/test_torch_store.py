@@ -170,3 +170,18 @@ def test_restore_into_like_keeps_devices_and_paths(tmp_path):
     flat = store.get_tree("k")
     assert "['state'].params['embed']['table']" in flat
     assert os.path.isdir(str(tmp_path / "s"))
+
+
+def test_python_scalar_leaf_records_0d_like_the_reference(tmp_path):
+    """A Python scalar leaf is a 0-d leaf in both packages' manifests (it
+    was once promoted to shape [1]) and restores 0-d."""
+    tree = {"step": 3, "w": np.arange(8, dtype=np.float32)}
+    _record(JPipeline(JStore(str(tmp_path / "j")), async_stage=False),
+            [tree])
+    _record(CheckpointPipeline(CheckpointStore(str(tmp_path / "t")),
+                               async_stage=False), [tree])
+    view = _manifest_view(CheckpointStore(str(tmp_path / "t")), "k0")
+    assert view == _manifest_view(JStore(str(tmp_path / "j")), "k0")
+    assert view[0]["path"] == "['step']" and view[0]["shape"] == []
+    got = CheckpointStore(str(tmp_path / "t")).get_tree("k0")["['step']"]
+    assert got.shape == () and int(got) == 3
