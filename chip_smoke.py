@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--kernels-only | --mixtral-only | --families-only
-                           | --serve-only | --handsfree-only | --dist-only]
+                           | --serve-only | --handsfree-only | --dist-only
+                           | --tools-only]
 
 Run from a checkout on a machine with one NVIDIA H100. Phases:
 
@@ -156,7 +157,33 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    one, ``lineage="W"`` must hold A2's and W's rows only, and ``python -m
    repro_torch.launch.runs list|show|diff|logs|pivot`` must exit 0 (their
    output printed); query walls printed;
-18. phase D, mesh-sharded record over a fleet, after ``empty_cache`` with
+18. phase T, the analysis tools, the gradient codec and the stage scan:
+   - T1: one ``torch.autograd.grad`` of full-width florbench-100m at path
+     A's seed and first batch (124M values); 3 error-feedback steps of
+     ``parallel/compression.py``'s codec on the card and on a CPU copy: q,
+     scales, error state and decompressed gradients bit for bit; wire
+     bytes against f32 bytes, card ms a step, and how many block scales a
+     division by the host scalar 127.0 would change on the card;
+   - T2: florbench-100m's 12 blocks as 4 stages of 3 through
+     ``parallel/pipeline.stage_scan`` (the port's ``dense_block`` on slices
+     of the stacked layer leaves, vmapped over the stages), 8 microbatches
+     of a 16 x 512 batch, f32 with TF32 off: within 1e-5 of the largest
+     output of the plain layer loop; ``bubble_fraction(4, 8)`` = 3/11;
+   - T3: ``launch/dryrun.py`` traces of florbench-100m train at path A's
+     shape and of qwen3-14b prefill (8 x 2048) and decode (batch 8 over
+     S2's 2080-position cache) in its bf16 compute, printed through
+     ``launch/roofline.to_markdown`` beside the card's name and power
+     limit; beside each row the card's measured time (the florbench step
+     timed here, median of 3, then once under ``torch.profiler``; S2's
+     prefill wall and decode median), ``model_flops / (measured x bf16
+     peak)`` and the measured time over the largest term; the decode
+     row's memory term must lie between the parameters read once and 4x
+     that;
+   - T4: ``python -m repro_torch.launch.reanalyze --store-summary`` on
+     path A's run dir and ``--logs-summary`` on the shared store, two
+     processes side by side: the manifest counts and log rows they print
+     equal ``CheckpointStore.stats()`` and ``log_records``;
+19. phase D, mesh-sharded record over a fleet, after ``empty_cache`` with
    no state held: florbench-100m at full width and depth with path A's
    seed, batches and steps, in processes of this script (``--d-child``)
    that share the card through a gloo group on a loopback coordinator:
@@ -179,7 +206,7 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
      replay hosts over path A's run (probe ``train``, 2 tasks): host 0
      merges after the store-file barrier and prints ``deferred check:
      ok=True`` with one hindsight row per step, the same rows R2 merged;
-19. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
+20. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
    paths A, R1, B, C, A2, W, W2, R3, H and D and their passes over the
    mixtral state and phase F's four states, outside that count; for the
    four ``ops`` kernels, the launches of their own phase), the card line,
@@ -187,8 +214,9 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
 
 ``--kernels-only`` stops after phase 2, ``--mixtral-only`` runs phase M
 alone after the build, ``--families-only`` phase F alone, ``--serve-only``
-phase S alone, ``--handsfree-only`` phase H alone and ``--dist-only``
-path A (which phase D reads) and phase D. Any failed phase, and any of
+phase S alone, ``--handsfree-only`` phase H alone, ``--dist-only``
+path A (which phase D reads) and phase D, and ``--tools-only`` phase S,
+path A2 and phase T (T4 then reads A2's run). Any failed phase, and any of
 phase D's processes that fails, exits non-zero before the last line is
 printed. The run directories live under ``build/chip_smoke`` (git-ignored)
 and are removed at the end.
@@ -2121,6 +2149,9 @@ def phase_s(torch, dev, hbm_bps):
         f"{profile_note(p_busy, p_n, p_top, t_prefill * 1e3)}")
     del params
     torch.cuda.empty_cache()
+    times = {"prefill_s": t_prefill, "decode_s": step,
+             "prefill_busy_ms": p_busy, "decode_busy_ms": d_busy,
+             "param_bytes": p_bytes}
 
     # S3: every family's cache path at phase F's cuts
     for arch, layers, prompt, what in S3_FAMILIES:
@@ -2138,6 +2169,7 @@ def phase_s(torch, dev, hbm_bps):
             f"{g_walls[1]:.2f} s), bit-identical: {toks[0].tolist()}")
         del params
         torch.cuda.empty_cache()
+    return times
 
 
 # ------------------------------------------------------------ hands-free --
@@ -2603,6 +2635,294 @@ def phase_d(torch, dev, digests_a: dict, smoke=False) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- phase T --
+# phase T: the analysis tools, the gradient codec and the stage scan on
+# the card. T2 runs florbench-100m's 12 blocks as T_STAGES stages, with
+# T_MICRO microbatches of a T_BATCH x SEQ batch, in f32 with TF32 off: the
+# stages run batched (vmap) against a plain loop over the layers, so only
+# the order of a matmul's sums may differ, hence 1e-5 of the largest output
+T_STEPS, T_STAGES, T_MICRO, T_BATCH, T_TOL = 3, 4, 8, 16, 1e-5
+
+
+def t1_codec(torch, dev, cfg, state, batch) -> dict:
+    """T1: 3 error-feedback steps of the gradient codec on one gradient of
+    full-width florbench-100m, on the card and on a CPU copy: q, scales,
+    error state and decompressed gradients bit for bit."""
+    from repro_torch.models import build_model
+    from repro_torch.parallel import compression as gc
+    from repro_torch.utils.pytree import (tree_flatten, tree_leaves,
+                                          tree_map, tree_unflatten)
+
+    leaves, treedef = tree_flatten(state.params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    loss, _ = build_model(cfg).loss(tree_unflatten(treedef, leaves), batch)
+    grads = tree_unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
+    del leaves, loss
+    n = sum(g.numel() for g in tree_leaves(grads))
+    runs = {}
+    for where in ("card", "cpu"):
+        g = grads if where == "card" else tree_map(lambda t: t.cpu(), grads)
+        err = gc.init_error_state(g)
+        walls = []
+        for _ in range(T_STEPS):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            comp, err = gc.compress_grads_with_feedback(g, err)
+            sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+        runs[where] = (comp, err, gc.decompress_grads(comp, g), walls)
+    (cc, ec, dc, walls), (cp, ep, dp, cpu_walls) = runs["card"], runs["cpu"]
+    is_c = lambda x: isinstance(x, gc.CompressedLeaf)  # noqa: E731
+    for a, b in zip(tree_leaves(cc, is_c), tree_leaves(cp, is_c)):
+        if not (bits_equal(torch, a.q.cpu(), b.q)
+                and bits_equal(torch, a.scale.cpu(), b.scale)):
+            fail("T1: the card's q / scales differ from the CPU's")
+    for x, y in zip(tree_leaves(ec) + tree_leaves(dc),
+                    tree_leaves(ep) + tree_leaves(dp)):
+        if not bits_equal(torch, x.cpu(), y):
+            fail("T1: the card's error state or decompressed gradients "
+                 "differ from the CPU's")
+    # the division the codec avoids: by a host scalar, CUDA multiplies by
+    # the reciprocal (the reference's jitted scale)
+    by_scalar = blocks = 0
+    for g in tree_leaves(grads):
+        flat = g.reshape(-1).float()
+        amax = torch.nn.functional.pad(flat, (0, (-flat.numel()) % gc.BLOCK)) \
+            .reshape(-1, gc.BLOCK).abs().amax(1)
+        by_scalar += int((amax / 127.0 != amax / torch.full_like(
+            amax, 127.0)).sum())
+        blocks += amax.numel()
+    wire = sum(c.q.numel() + 4 * c.scale.numel()
+               for c in tree_leaves(cc, is_c))
+    say(f"T1 codec: florbench-100m gradient ({n} values, "
+        f"{len(tree_leaves(grads))} leaves, one autograd.grad at path A's "
+        f"seed and {BATCH}x{SEQ} batch), {T_STEPS} error-feedback steps on "
+        f"the card and on a CPU copy: q, scales, error state and "
+        f"decompressed gradients bit for bit; wire {wire} B against "
+        f"{4 * n} B in f32 ({4 * n / wire:.2f}x); card "
+        f"{statistics.median(walls) * 1e3:.2f} ms a step (median; "
+        + ", ".join(f"{w * 1e3:.2f}" for w in walls) + " ms), CPU "
+        f"{statistics.median(cpu_walls) * 1e3:.0f} ms; dividing by the host "
+        f"scalar 127.0 instead gives another scale in {by_scalar} of "
+        f"{blocks} blocks on the card")
+    return {"card_ms": statistics.median(walls) * 1e3, "values": n,
+            "wire_bytes": wire, "scalar_div_blocks": by_scalar}
+
+
+def t2_stage_scan(torch, dev, cfg, params) -> dict:
+    """T2: florbench-100m's 12 blocks as T_STAGES stages of 12/T_STAGES
+    blocks through ``parallel.pipeline.stage_scan`` (the port's own
+    ``dense_block`` on slices of the stacked layer leaves), T_MICRO
+    microbatches of a T_BATCH x SEQ batch, against the plain loop over the
+    layers; f32, TF32 off."""
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models.transformer import (_embed_inputs, _layer,
+                                                dense_block,
+                                                rope_tables_for)
+    from repro_torch.parallel.pipeline import bubble_fraction, stage_scan
+    from repro_torch.train.step import batch_to_device
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = cfg.replace(dtype="float32")
+    L = cfg.num_layers
+    per = L // T_STAGES
+    tokens = batch_to_device(synthetic_batch(cfg, T_BATCH, SEQ, 0, SEED),
+                             dev)["tokens"]
+    with torch.no_grad():
+        x = _embed_inputs(cfg, params, tokens, None)
+        rope = rope_tables_for(cfg, x.shape[1], dev)
+        stages = tree_map(lambda w: w.reshape(T_STAGES, per, *w.shape[1:]),
+                          params["layers"])
+
+        def stage_fn(p, h):
+            for i in range(per):
+                h = dense_block(cfg, _layer(p, i), h, None, rope)
+            return h
+
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        got = stage_scan(stage_fn, stages, x, microbatches=T_MICRO)
+        sync(torch, dev)
+        t_scan = time.perf_counter() - t0
+        want = x
+        for i in range(L):
+            want = dense_block(cfg, _layer(params["layers"], i), want, None,
+                               rope)
+        err = float((got.double() - want.double()).abs().max()
+                    / want.double().abs().max())
+    bubble = bubble_fraction(T_STAGES, T_MICRO)
+    if not err <= T_TOL:
+        fail(f"T2: stage_scan differs from the layer loop by {err:.3e} of "
+             f"the largest output (tol {T_TOL})")
+    if bubble != 3 / 11:
+        fail(f"T2: bubble_fraction({T_STAGES}, {T_MICRO}) = {bubble}")
+    say(f"T2 stage scan: florbench-100m's {L} blocks as {T_STAGES} stages "
+        f"of {per}, {T_MICRO} microbatches of {T_BATCH // T_MICRO} x {SEQ} "
+        f"(f32, TF32 off, vmap over the stages): max diff {err:.3e} of the "
+        f"largest output against the layer loop (tol {T_TOL}); "
+        f"bubble_fraction({T_STAGES}, {T_MICRO}) = {bubble:.4f} = 3/11; "
+        f"scan {t_scan:.3f} s (first call)")
+    return {"err": err}
+
+
+def t3_roofline(torch, dev, hbm_bps, cfg, state, batch, serve_times,
+                card) -> dict:
+    """T3: ``launch.dryrun`` rows of the steps the card runs: florbench-100m
+    train at path A's shape, qwen3-14b prefill and decode at phase S2's, in
+    its bf16 compute; each beside the card's measured time (the florbench
+    step here under ``torch.profiler``; S2's prefill wall and decode
+    median), its useful FLOPs' share of the bf16 peak, and the measured
+    time over the largest roofline term (bounds from the data-sheet
+    peaks)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.train.step import build_train_step
+
+    _, train_step = build_train_step(cfg, device=dev)
+    train_step(state, batch)                          # warm up
+    walls = []
+    for _ in range(3):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+    step_s = statistics.median(walls)
+    _, busy, n_act, tops = device_profile(torch, lambda: train_step(state,
+                                                                    batch))
+    dryrun.FX_DIR = os.path.join(WORK, "fx")
+    cells = [("florbench-100m", ShapeSpec("path_a_train", "train", SEQ,
+                                          BATCH), step_s),
+             (S_ARCH, ShapeSpec("s2_prefill", "prefill", S2_PROMPT,
+                                S2_BATCH), serve_times["prefill_s"]),
+             (S_ARCH, ShapeSpec("s2_decode", "decode",
+                                S2_PROMPT + S2_STEPS, S2_BATCH),
+              serve_times["decode_s"])]
+    results, traced = [], {}
+    for arch, shape, _ in cells:
+        t0 = time.perf_counter()
+        results.append(dryrun.run_cell(arch, shape, device=dev))
+        traced[shape.name] = time.perf_counter() - t0
+    rows = roofline.build_rows(results)
+    for line in roofline.to_markdown(rows).splitlines():
+        say(f"  T3| {line}")
+    say(f"T3 card: {card}; terms are bounds from the H100 SXM5 data-sheet "
+        f"peaks (989.4 TFLOP/s bf16, 3.35 TB/s, NVLink 450 GB/s)")
+    out = {}
+    for (arch, shape, meas), r, row in zip(cells, results, rows):
+        terms = r["roofline"]
+        largest = max(terms["compute_s"], terms["memory_s"],
+                      terms["collective_s"])
+        mfu = row["model_flops"] / (meas * PEAK_FLOPS_BF16)
+        mem = r["memory"]
+        say(f"T3 {arch} {shape.kind} {shape.global_batch}x{shape.seq_len}: "
+            f"graph {r['graph_nodes']} nodes traced in {r['trace_s']:.2f} s "
+            f"({traced[shape.name]:.2f} s with the analysis), "
+            f"{r['flops_per_device']:.4g} FLOPs, "
+            f"{r['bytes_accessed_per_device']:.4g} bytes; model_flops "
+            f"{row['model_flops']:.4g}; measured {meas * 1e3:.2f} ms on the "
+            f"card: model_flops / (measured x bf16 peak) {mfu:.4f}, "
+            f"measured / largest term {meas / largest:.2f} "
+            f"({row['dominant']}); memory: arguments "
+            f"{mem['argument_bytes'] / 1e9:.2f} GB, temp "
+            f"{mem['temp_bytes'] / 1e9:.2f} GB, outputs "
+            f"{mem['output_bytes'] / 1e9:.2f} GB")
+        out[shape.name] = {"ms": meas * 1e3, "mfu": mfu,
+                           "over_largest": meas / largest,
+                           "memory_ms": terms["memory_s"] * 1e3}
+    say(f"T3 florbench-100m train step: median of 3 walls "
+        + ", ".join(f"{w * 1e3:.2f}" for w in walls) + " ms; one more "
+        f"under torch.profiler: {profile_note(busy, n_act, tops, step_s * 1e3)}")
+    # the decode step reads the f32 parameters, casts them to bf16 and reads
+    # the copies: its bytes must be of the order of the parameters read once
+    once_ms = serve_times["param_bytes"] / hbm_bps * 1e3
+    dec_ms = out["s2_decode"]["memory_ms"]
+    if not once_ms <= dec_ms <= 4 * once_ms:
+        fail(f"T3: the decode row's memory term {dec_ms:.2f} ms is not of "
+             f"the order of the parameters read once ({once_ms:.2f} ms)")
+    say(f"T3 decode memory term {dec_ms:.2f} ms against the parameters "
+        f"read once, {once_ms:.2f} ms ({dec_ms / once_ms:.2f}x: each f32 "
+        f"weight is read, written as bf16 and read again every call)")
+    return out
+
+
+def t4_reanalyze(run_dir: str, store: str):
+    """T4: ``launch.reanalyze --store-summary`` on ``run_dir`` and
+    ``--logs-summary`` on ``store`` as two processes side by side; the
+    manifest counts and log rows they print must equal the store's own."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.checkpoint.lineage import read_run_meta
+    from repro_torch.core.query import log_records
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.reanalyze", flag, path],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for flag, path in (("--store-summary", run_dir),
+                                      ("--logs-summary", store))]
+    outs = []
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            fail("T4: reanalyze did not finish in 300 s")
+        if proc.returncode != 0:
+            fail(f"T4: reanalyze exited {proc.returncode}:\n{err[-3000:]}")
+        outs.append(out)
+        for line in out.strip().splitlines():
+            say(f"  T4| {line}")
+    wall = time.perf_counter() - t0
+    meta = read_run_meta(run_dir)
+    st = CheckpointStore(meta.get("store_root") or os.path.join(
+        run_dir, "store"), run_id=meta.get("namespace"))
+    st = st.stats(keys=st.list_keys())
+    m = re.search(r": (\d+) manifests \((\d+) full \+ (\d+) delta\)",
+                  outs[0])
+    got = tuple(int(x) for x in m.groups()) if m else None
+    want = (st["manifests"], st["full_manifests"], st["delta_manifests"])
+    if got != want:
+        fail(f"T4: --store-summary printed {got}, the store has {want}")
+    rows = len(log_records(store))
+    m = re.search(r": (\d+) log rows across", outs[1])
+    if not m or int(m[1]) != rows:
+        fail(f"T4: --logs-summary printed {m and m[1]} rows, the store "
+             f"holds {rows}")
+    say(f"T4 reanalyze: {want[0]} manifests ({want[1]} full + {want[2]} "
+        f"delta) and {rows} log rows, as CheckpointStore.stats() and "
+        f"log_records give them; two processes in {wall:.2f} s")
+
+
+def phase_t(torch, dev, hbm_bps, serve_times, run_dir, store) -> dict:
+    """Phase T: T1 codec, T2 stage scan, T3 roofline rows beside the
+    card's times, T4 reanalyze over ``run_dir`` and ``store``."""
+    import repro_torch.configs as C
+    from repro_torch.data import synthetic_batch
+    from repro_torch.train.step import batch_to_device, build_train_step
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = C.get("florbench-100m")
+    init_state, _ = build_train_step(cfg, device=dev)
+    state = init_state(SEED)
+    batch = batch_to_device(synthetic_batch(cfg, BATCH, SEQ, 0, SEED), dev)
+    t1 = t1_codec(torch, dev, cfg, state, batch)
+    t2 = t2_stage_scan(torch, dev, cfg, state.params)
+    t3 = t3_roofline(torch, dev, hbm_bps, cfg, state, batch, serve_times,
+                     smi_line())
+    del state
+    torch.cuda.empty_cache()
+    t4_reanalyze(run_dir, store)
+    wall = time.perf_counter() - t_start
+    say(f"phase T: {wall:.1f} s (T1 codec, T2 stage scan, T3 roofline, T4 "
+        f"reanalyze)")
+    return {"T1": t1, "T2": t2, "T3": t3, "wall_s": wall}
+
+
 # ------------------------------------------------------------------ main --
 # kernel -> (CUDA source, the TPU kernel it replaces, its path); "record"
 # kernels must have launched on paths A-C and A2-R3, "ops" kernels report the
@@ -2736,6 +3056,19 @@ def main():
         lap("F")
         say("--families-only: stopping after phase F")
         return
+    if "--tools-only" in sys.argv[1:]:
+        # phase T reads phase S's times and a recorded run and store: the
+        # lineage parent A2 (2 layers, one checkpoint) is the cheapest
+        serve_times = phase_s(torch, dev, hbm_bps)
+        torch.cuda.empty_cache()
+        lap("S")
+        path_a2(torch, ops, dev)
+        lap("A2")
+        phase_t(torch, dev, hbm_bps, serve_times,
+                os.path.join(WORK, "path_a2"), STORE)
+        lap("T")
+        say("--tools-only: stopping after phase T")
+        return
     if "--serve-only" in sys.argv[1:]:
         phase_s(torch, dev, hbm_bps)
         lap("S")
@@ -2776,7 +3109,7 @@ def main():
             results[kname].setdefault("family_passes", {})[arch] = r
     lap("F")
     torch.cuda.empty_cache()
-    phase_s(torch, dev, hbm_bps)
+    serve_times = phase_s(torch, dev, hbm_bps)
     torch.cuda.empty_cache()
     lap("S")
     counts_h = phase_h(torch, ops, dev)
@@ -2810,6 +3143,9 @@ def main():
     lap("R3")
     path_q(torch)
     lap("Q")
+    phase_t(torch, dev, hbm_bps, serve_times, os.path.join(WORK, "path_a"),
+            STORE)
+    lap("T")
     torch.cuda.empty_cache()
     counts_d = phase_d(torch, dev, digests_a)
     lap("D")

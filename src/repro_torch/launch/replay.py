@@ -28,6 +28,11 @@ this launcher on every host against the shared store: each derives the same
 plan and LPT host partition, executes its own share with read affinity to
 its block of store shards (``--prefer-shards``), and host 0 merges once
 every host has arrived at a store-file barrier (``--merge-timeout``).
+``--no-plan`` is the legacy contiguous fan-out (no planner: each worker
+replays its contiguous share of the epochs; it refuses ``--probe auto``,
+which needs the planner). ``--coordinator`` is accepted for symmetry with
+the train launcher and unused: replay hosts coordinate through the store
+filesystem.
 """
 from __future__ import annotations
 
@@ -109,7 +114,7 @@ def _print_store_summary(run_dir: str):
              if meta.get("store_root") else ""))
 
 
-def _worker_cmd(args, pid: int, segments: str) -> list[str]:
+def _worker_cmd(args, pid: int, segments: str = "") -> list[str]:
     cmd = [sys.executable, "-m", "repro_torch.launch.replay",
            "--run-dir", args.run_dir, "--arch", args.arch,
            "--device", args.device,
@@ -118,13 +123,33 @@ def _worker_cmd(args, pid: int, segments: str) -> list[str]:
            "--batch", str(args.batch), "--seq", str(args.seq),
            "--nworkers", str(args.nworkers), "--pid", str(pid),
            "--probe", "" if args.probe == "auto" else args.probe,
-           "--init-mode", args.init_mode, "--seed", str(args.seed),
-           "--segments", segments]
+           "--init-mode", args.init_mode, "--seed", str(args.seed)]
+    if segments:
+        cmd += ["--segments", segments]
     if args.smoke:
         cmd.append("--smoke")
     if args.layers:
         cmd += ["--layers", str(args.layers)]
     return cmd
+
+
+def _legacy_fanout(args) -> None:
+    """The pre-planner contiguous fan-out (``--no-plan``): every worker
+    replays its contiguous share of the epochs, as the record's epoch
+    count splits over ``--nworkers``."""
+    t0 = time.time()
+    procs = [subprocess.Popen(_worker_cmd(args, pid), env=os.environ.copy())
+             for pid in range(args.nworkers)]
+    rcodes = [p.wait() for p in procs]
+    print(f"parallel replay (legacy contiguous): {args.nworkers} workers, "
+          f"wall {time.time() - t0:.2f}s, rc={rcodes}")
+    _print_store_summary(args.run_dir)
+    if any(rcodes):
+        sys.exit(1)
+    if args.check:
+        import repro_torch.flor as flor
+        rec, reps = flor.run_logs(args.run_dir)
+        _report_check(flor.deferred_check(rec, reps))
 
 
 def _report_check(res) -> None:
@@ -200,6 +225,10 @@ def main(argv=None):
                     help="model N replay hosts: tasks are LPT-placed onto "
                          "host queues and workers steal only when their "
                          "home queue drains")
+    ap.add_argument("--coordinator", default=None,
+                    help="accepted for launcher symmetry with train; "
+                         "replay hosts coordinate through the store "
+                         "filesystem, not a process group")
     ap.add_argument("--process-id", type=int, default=0,
                     help="this host's id in a multi-process replay fleet "
                          "(every host runs this launcher)")
@@ -222,6 +251,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plan-only", action="store_true",
                     help="print the plan and assignments, run nothing")
+    ap.add_argument("--no-plan", action="store_true",
+                    help="legacy contiguous fan-out (deprecated)")
     ap.add_argument("--check", action="store_true",
                     help="run the deferred correctness check after replay")
     args = ap.parse_args(argv)
@@ -235,6 +266,14 @@ def main(argv=None):
             raise RuntimeError(
                 f"--device {args.device}: torch.cuda.is_available() is "
                 f"False (pass --device cpu to replay on the CPU)")
+    if args.no_plan:
+        if args.probe == "auto":
+            # the legacy fan-out has no planner to consume the detection:
+            # silently degrading to "no probes" would report a vacuously
+            # passing check
+            ap.error("--probe auto requires the planner; drop --no-plan")
+        _legacy_fanout(args)
+        return
 
     import repro_torch.flor as flor
     from repro_torch.logging import remove_stream

@@ -134,9 +134,13 @@ def _chunked_sdpa(q, k, v, causal, window, scale, chunk,
     return o.permute(0, 3, 1, 2, 4).to(q.dtype)          # [B,Sq,KV,G,hd]
 
 
-def self_attention(cfg, p, x, *, causal=True, window=None, rope=None):
+def self_attention(cfg, p, x, *, causal=True, window=None, rope=None,
+                   return_kv=False):
     """Training self-attention over the full sequence. ``rope`` is the
-    (cos, sin) table pair computed once per forward."""
+    (cos, sin) table pair computed once per forward. ``return_kv`` also
+    returns the (roped) K/V, which a prefill lays into its cache: eager
+    code has no common-subexpression pass to share them, as XLA does for
+    the reference."""
     hd = cfg.resolved_head_dim()
     scale = 1.0 / np.sqrt(hd)
     q = apply_rope(_project_q(cfg, p, x), rope)
@@ -155,7 +159,8 @@ def self_attention(cfg, p, x, *, causal=True, window=None, rope=None):
                           probs_dtype=getattr(torch,
                                               cfg.attention_probs_dtype),
                           remat_chunk=cfg.attention_remat_chunk)
-    return _out_proj(cfg, p, o)
+    out = _out_proj(cfg, p, o)
+    return (out, (k, v)) if return_kv else out
 
 
 def cross_attention(cfg, p, x, enc_out):
@@ -236,16 +241,15 @@ def decode_attention(cfg, p, x, cache, pos: int, rope):
     return _out_proj(cfg, p, o), cache
 
 
-def prefill_cache(cfg, p, x, max_len: int, dtype, rope):
-    """K/V of a whole prompt laid into a fresh cache, so decode continues
+def prefill_cache(cfg, k, v, max_len: int, dtype):
+    """A whole prompt's K/V (the roped K and V that ``self_attention(...,
+    return_kv=True)`` gave) laid into a fresh cache, so decode continues
     at position S. When the prompt fills the cache (S >= Smax) it keeps the
     last Smax positions, each in its ring slot."""
-    k, v = _project_kv(cfg, p, x)
-    k = apply_rope(k, rope)
-    S = x.shape[1]
+    S = k.shape[1]
     smax = _cache_len(cfg, max_len)
     if S >= smax:
-        tail_pos = torch.arange(S - smax, S, device=x.device)
+        tail_pos = torch.arange(S - smax, S, device=k.device)
         order = torch.argsort(tail_pos % smax)
         ck = k[:, S - smax:][:, order].to(dtype)
         cv = v[:, S - smax:][:, order].to(dtype)
@@ -254,6 +258,6 @@ def prefill_cache(cfg, p, x, max_len: int, dtype, rope):
         pad = smax - S
         ck = F.pad(k, (0, 0, 0, 0, 0, pad)).to(dtype)
         cv = F.pad(v, (0, 0, 0, 0, 0, pad)).to(dtype)
-        slot_pos = torch.cat([torch.arange(S, device=x.device),
-                              torch.full((pad,), -1, device=x.device)])
+        slot_pos = torch.cat([torch.arange(S, device=k.device),
+                              torch.full((pad,), -1, device=k.device)])
     return {"k": ck, "v": cv, "slot_pos": slot_pos.to(torch.int32)}

@@ -139,10 +139,11 @@ def encdec_prefill(cfg, params, batch, max_len: int):
     for i in range(L):
         lyr = _layer(params["dec_layers"], i)
         h = rms_norm(x, lyr["ln1"], cfg.norm_eps)
-        write_layer(self_c, i, attn.prefill_cache(cfg, lyr["self_attn"], h,
-                                                  max_len, dtype, rope))
-        x = x + attn.self_attention(cfg, lyr["self_attn"], h, causal=True,
-                                    rope=rope)
+        out, (k, v) = attn.self_attention(cfg, lyr["self_attn"], h,
+                                          causal=True, rope=rope,
+                                          return_kv=True)
+        write_layer(self_c, i, attn.prefill_cache(cfg, k, v, max_len, dtype))
+        x = x + out
         h = rms_norm(x, lyr["ln2"], cfg.norm_eps)
         x = x + attn.cross_attention(cfg, lyr["cross_attn"], h, enc_out)
         cross_k.append(torch.einsum("bsd,dnh->bsnh", enc_out,

@@ -65,8 +65,10 @@ def _latents(cfg, p, x, rope):
     return q_nope, q_rope, c_kv, k_r
 
 
-def mla_attention(cfg, p, x, rope):
-    """Training forward: expanded form + chunked softmax, causal."""
+def mla_attention(cfg, p, x, rope, return_latents=False):
+    """Training forward: expanded form + chunked softmax, causal.
+    ``return_latents`` also returns (c_kv, k_r), which a prefill lays into
+    its cache."""
     m = cfg.mla
     H = cfg.num_heads
     qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
@@ -85,7 +87,8 @@ def mla_attention(cfg, p, x, rope):
                       probs_dtype=getattr(torch, cfg.attention_probs_dtype),
                       remat_chunk=cfg.attention_remat_chunk)
     o = o.reshape(B, S, H, qk_hd)[..., :m.v_head_dim]
-    return torch.einsum("bsnh,nhd->bsd", o, p["wo"].to(x.dtype))
+    out = torch.einsum("bsnh,nhd->bsd", o, p["wo"].to(x.dtype))
+    return (out, (c_kv, k_r)) if return_latents else out
 
 
 # ------------------------------------------------------------- decode -----
@@ -138,19 +141,15 @@ def mla_decode(cfg, p, x, cache, pos: int, rope):
     return out, cache
 
 
-def mla_prefill_cache(cfg, p, x, max_len: int, dtype, rope):
-    """The prompt's latents and rope keys in rows 0..S-1 of a fresh
-    cache."""
-    c_kv = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(x.dtype)),
-                    p["kv_ln"], cfg.norm_eps)
-    k_r = apply_rope(torch.einsum("bsd,dr->bsr", x, p["w_kr"].to(x.dtype)),
-                     rope)
-    S = x.shape[1]
+def mla_prefill_cache(c_kv, k_r, max_len: int, dtype):
+    """The prompt's latents and rope keys (as ``mla_attention(...,
+    return_latents=True)`` gave them) in rows 0..S-1 of a fresh cache."""
+    S = c_kv.shape[1]
     pad = max_len - S
     return {
         "c_kv": F.pad(c_kv, (0, 0, 0, pad)).to(dtype),
         "k_r": F.pad(k_r, (0, 0, 0, pad)).to(dtype),
         "slot_pos": torch.cat([
-            torch.arange(S, dtype=torch.int32, device=x.device),
-            torch.full((pad,), -1, dtype=torch.int32, device=x.device)]),
+            torch.arange(S, dtype=torch.int32, device=c_kv.device),
+            torch.full((pad,), -1, dtype=torch.int32, device=c_kv.device)]),
     }

@@ -116,7 +116,11 @@ def moe_local(cfg, p, x_flat, cap: int):
     order = torch.sort(ids_f, stable=True).indices   # sorted place -> choice
     place = torch.empty_like(order).scatter_(
         0, order, torch.arange(n, device=dev))     # choice -> sorted place
-    counts = torch.bincount(ids_f, minlength=E)
+    # choices per expert, counted into a fixed [E] buffer (bincount's
+    # length depends on the ids' values, which a fake-tensor trace cannot
+    # know); integer adds, so the same counts in any order
+    counts = torch.zeros(E, dtype=torch.int64, device=dev).index_add_(
+        0, ids_f, torch.ones_like(ids_f))
     start = torch.cumsum(counts, 0) - counts   # an expert's first place
     pos = place - start[ids_f]                 # a choice's slot in its expert
     keep = pos < cap

@@ -281,13 +281,14 @@ def _attn_prefill(cfg, p, x, max_len, dtype, window, rope):
     """Run one attention block AND emit its primed cache."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla:
-        out = mla.mla_attention(cfg, p["attn"], h, rope)
-        cache = mla.mla_prefill_cache(cfg, p["attn"], h, max_len, dtype,
-                                      rope)
+        out, (c_kv, k_r) = mla.mla_attention(cfg, p["attn"], h, rope,
+                                             return_latents=True)
+        cache = mla.mla_prefill_cache(c_kv, k_r, max_len, dtype)
     else:
-        out = attn.self_attention(cfg, p["attn"], h, causal=True,
-                                  window=window, rope=rope)
-        cache = attn.prefill_cache(cfg, p["attn"], h, max_len, dtype, rope)
+        out, (k, v) = attn.self_attention(cfg, p["attn"], h, causal=True,
+                                          window=window, rope=rope,
+                                          return_kv=True)
+        cache = attn.prefill_cache(cfg, k, v, max_len, dtype)
     x = x + out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:

@@ -1,6 +1,20 @@
-"""The writer-thread ENTROPY STAGE of the checkpoint wire pipeline.
+"""Gradient compression with error feedback, plus the writer-thread ENTROPY
+STAGE of the checkpoint wire pipeline (reference: the reference package's
+``parallel/compression.py``).
 
-A host-side byte-plane shuffle + high-level compress applied to
+Gradient codec (opt-in): each gradient leaf is quantized per 256-value
+block to int8 + an f32 scale (~4x over f32 on the wire), and the
+quantization residual is carried into the next step (error feedback). It
+is plain torch on either device, as the reference computes it in jnp
+outside any Pallas kernel, and it gives the reference's bits as its own
+test calls it (eagerly): the scale is ``absmax / 127`` by IEEE division.
+The division goes by a tensor, never by a Python scalar, because CUDA's
+division by a host scalar multiplies by its reciprocal, which is what the
+reference gives under ``jax.jit`` (and what the checkpoint kernels'
+``quantize_blocks`` gives): ``absmax * fl(1/127)``, another scale in ~4%
+of the blocks.
+
+Entropy stage: a host-side byte-plane shuffle + high-level compress applied to
 already-gathered checkpoint chunks on the WRITER thread (never the step
 path — its cost lands in the adaptive controller's ``bg_s`` accumulator).
 Transposing an f32 payload into byte planes groups the exponent bytes of
@@ -9,15 +23,20 @@ neighboring values, which a generic per-chunk zstd/zlib pass cannot exploit
 comes from. The output is self-describing (magic + stride + raw length),
 and the inner codec is ``utils.codec.Compressor`` so the zlib fallback
 works where zstandard is absent.
-
-(The reference package's gradient-compression codec in the same module is
-ROADMAP queue 1, item 14.)
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from repro_torch.utils.codec import Compressor
+from repro_torch.utils.pytree import (tree_flatten, tree_leaves, tree_map,
+                                      tree_unflatten)
+
+BLOCK = 256
 
 # wire header: magic byte, byte-plane stride (1 = no shuffle), u32 raw length
 _ENTROPY_MAGIC = 0xE7
@@ -51,3 +70,61 @@ def entropy_decode_bytes(payload: bytes) -> bytes:
             .T.tobytes()
     assert len(body) == raw_len, (len(body), raw_len)
     return body
+
+
+# --------------------------------------------------------- gradient codec --
+
+class CompressedLeaf(NamedTuple):
+    q: torch.Tensor       # int8 [n_blocks, BLOCK]
+    scale: torch.Tensor   # f32  [n_blocks]
+    n: int                # original element count
+
+
+def _is_compressed(x) -> bool:
+    return isinstance(x, CompressedLeaf)
+
+
+def quantize_leaf(x: torch.Tensor) -> CompressedLeaf:
+    flat = x.reshape(-1).to(torch.float32)
+    n = flat.shape[0]
+    blocks = F.pad(flat, (0, (-n) % BLOCK)).reshape(-1, BLOCK)
+    absmax = blocks.abs().amax(dim=1)
+    # IEEE division by a tensor (see the module docstring)
+    scale = torch.clamp_min(absmax / torch.full_like(absmax, 127.0), 1e-12)
+    q = torch.clamp(torch.round(blocks / scale[:, None]), -127, 127) \
+        .to(torch.int8)
+    return CompressedLeaf(q=q, scale=scale, n=n)
+
+
+def dequantize_leaf(c: CompressedLeaf, shape, dtype) -> torch.Tensor:
+    blocks = c.q.to(torch.float32) * c.scale[:, None]
+    return blocks.reshape(-1)[: c.n].reshape(shape).to(dtype)
+
+
+def compress_grads_with_feedback(grads, error_state):
+    """Returns (compressed tree, new error state). ``error_state`` has the
+    structure of ``grads`` (``init_error_state``: zeros at step 0); the
+    compressed tree holds a ``CompressedLeaf`` in place of each leaf."""
+    flat_g, treedef = tree_flatten(grads)
+    comp, err = [], []
+    for g, e in zip(flat_g, tree_leaves(error_state)):
+        g32 = g.to(torch.float32) + e.to(torch.float32)
+        c = quantize_leaf(g32)
+        comp.append(c)
+        err.append(g32 - dequantize_leaf(c, g.shape, torch.float32))
+    return tree_unflatten(treedef, comp), tree_unflatten(treedef, err)
+
+
+def decompress_grads(comp, like):
+    """The gradients of a compressed tree, in ``like``'s shapes and
+    dtypes."""
+    flat_l, treedef = tree_flatten(like)
+    return tree_unflatten(treedef, [
+        dequantize_leaf(c, l.shape, l.dtype)
+        for c, l in zip(tree_leaves(comp, _is_compressed), flat_l)])
+
+
+def init_error_state(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+

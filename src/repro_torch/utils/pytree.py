@@ -67,30 +67,31 @@ def _node(x):
 # which would keep every leaf it saw alive until the garbage collector ran
 # (a whole TrainState per train step on the card).
 
-def _flatten(x, path, out: list) -> TreeDef:
-    node = _node(x)
+def _flatten(x, path, out: list, is_leaf) -> TreeDef:
+    node = None if is_leaf is not None and is_leaf(x) else _node(x)
     if node is None:
         out.append((path, x))
         return TreeDef("leaf")
     kind, ctx, kids = node
-    return TreeDef(kind, ctx, tuple(_flatten(c, path + (k,), out)
+    return TreeDef(kind, ctx, tuple(_flatten(c, path + (k,), out, is_leaf)
                                     for k, c in kids))
 
 
-def tree_flatten_with_path(tree) -> tuple[list, TreeDef]:
-    """([(key path tuple, leaf), ...], treedef) in the reference order."""
+def tree_flatten_with_path(tree, is_leaf=None) -> tuple[list, TreeDef]:
+    """([(key path tuple, leaf), ...], treedef) in the reference order;
+    a node for which ``is_leaf`` holds is a leaf (as jax's ``is_leaf``)."""
     out: list = []
-    treedef = _flatten(tree, (), out)
+    treedef = _flatten(tree, (), out, is_leaf)
     return out, treedef
 
 
-def tree_flatten(tree) -> tuple[list, TreeDef]:
-    flat, treedef = tree_flatten_with_path(tree)
+def tree_flatten(tree, is_leaf=None) -> tuple[list, TreeDef]:
+    flat, treedef = tree_flatten_with_path(tree, is_leaf)
     return [leaf for _, leaf in flat], treedef
 
 
-def tree_leaves(tree) -> list:
-    return tree_flatten(tree)[0]
+def tree_leaves(tree, is_leaf=None) -> list:
+    return tree_flatten(tree, is_leaf)[0]
 
 
 def _unflatten(td: TreeDef, it):

@@ -4,8 +4,9 @@ examples/torch_hindsight_replay.py replays the run with its outer probe
 only (every epoch restored) and with its inner probe (every epoch
 re-executed). Each replay must pass the deferred check and end on the
 recorded final state's digest, bit for bit. The serving example prints a
-request's greedy tokens, and the two mesh examples relaunch themselves as
-four-process gloo fleets."""
+request's greedy tokens, the two mesh examples relaunch themselves as
+four-process gloo fleets, and the parallel-replay example records, edits
+its script and replays with ``--probe auto``."""
 import os
 import re
 import subprocess
@@ -100,3 +101,13 @@ def test_fleet_examples_on_cpu(tmp_path, script, ok):
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     assert ok in r.stdout
+
+
+def test_parallel_replay_example_on_cpu(tmp_path):
+    """examples/torch_parallel_replay.py: record, the hindsight edit,
+    ``--probe auto`` over two workers and the deferred check."""
+    out = _run("torch_parallel_replay.py", "--run-dir", str(tmp_path / "r"),
+               "--nworkers", "2")
+    assert "probe auto: 1 added line(s) -> inner blocks ['train']" in out
+    assert (f"deferred check: ok=True compared={EPOCHS} "
+            f"hindsight={EPOCHS * STEPS}") in out

@@ -296,7 +296,7 @@ CHECKED = "deferred check: ok=True compared=3 hindsight=6"
 
 @pytest.mark.parametrize("option", ["plan-only", "partition", "hosts",
                                     "tasks-per-worker", "straggler-factor",
-                                    "probe-auto"])
+                                    "probe-auto", "no-plan", "coordinator"])
 def test_replay_launcher_options(tmp_path, launcher_run, option):
     """Each scheduling and planning option of the launcher, one replay of
     the same recorded run each (on a copy of it)."""
@@ -323,15 +323,31 @@ def test_replay_launcher_options(tmp_path, launcher_run, option):
                         _probe_added_source(tmp_path), "--check"],
                        ["probe auto: 1 added line(s) -> inner blocks "
                         "['train']", CHECKED]),
+        "no-plan": (["--probe", "train", "--no-plan", "--check"],
+                    ["parallel replay (legacy contiguous): 2 workers",
+                     CHECKED]),
+        "coordinator": (["--probe", "train", "--coordinator",
+                         "127.0.0.1:1", "--check"], [CHECKED]),
     }[option]
     r = _launch("repro_torch.launch.replay", common + args)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     for w in want:
         assert w in r.stdout, (w, r.stdout[-3000:])
     merged = os.path.join(run, "logs", "merged_replay.jsonl")
-    assert os.path.exists(merged) == (option != "plan-only")
+    # the legacy fan-out checks the workers' own logs, merging none
+    assert os.path.exists(merged) == (option not in ("plan-only", "no-plan"))
     if option == "straggler-factor":
         assert "straggler speculation" not in r.stdout
+
+
+def test_no_plan_refuses_probe_auto(tmp_path, launcher_run):
+    """The legacy fan-out has no planner to take the source-diff probes:
+    it refuses ``--probe auto`` instead of replaying with none."""
+    r = _launch("repro_torch.launch.replay",
+                LAUNCH + ["--device", "cpu", "--run-dir", launcher_run,
+                          "--no-plan", "--probe", "auto"])
+    assert r.returncode == 2
+    assert "--probe auto requires the planner" in r.stderr
 
 
 def test_replay_launcher_without_device_flag_refuses_cpu(tmp_path):
