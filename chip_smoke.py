@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--kernels-only | --mixtral-only | --families-only
                            | --serve-only | --handsfree-only | --dist-only
-                           | --tools-only]
+                           | --tools-only | --parallel-only]
 
 Run from a checkout on a machine with one NVIDIA H100. Phases:
 
@@ -206,8 +206,35 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
      replay hosts over path A's run (probe ``train``, 2 tasks): host 0
      merges after the store-file barrier and prints ``deferred check:
      ok=True`` with one hindsight row per step, the same rows R2 merged;
-20. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
-   paths A, R1, B, C, A2, W, W2, R3, H and D and their passes over the
+20. phase P, sharded model compute, after phase D with no state held:
+   four processes of this script (``--d-child``) share the card through
+   gloo on a loopback coordinator:
+   - P1: ``repro_torch.launch.train.main`` with ``--mesh 2x2
+     --num-processes 4`` in each process (the sharded step), florbench-100m
+     at full width and depth with path A's seed, batches and checkpoints
+     for one epoch of its steps: each step's loss and grad_norm within
+     ``P_LOSS_RTOL`` / ``P_GN_RTOL`` of path A's same step (tolerances from
+     the CPU tests), the tip ``train@0.0`` restored unsharded within
+     ``P_STATE_TOL`` (parameters) / ``P_GN_RTOL`` (moments) of
+     ``A::train@0.0``, no process holding more than half the state; per
+     process: step walls, collective calls / bytes / seconds per axis,
+     peak memory, #1 / #2 launches;
+   - one fleet for the rest: P0 every collective of
+     ``parallel/collectives.py`` at 1 and 64 MiB over both axes of a (2,
+     2) mesh, bit for bit against the CPU on integer-valued f32, with its
+     route (staged or handed to gloo) and GB/s; the sharded step twice
+     from one state, the same bits; P4 phase T2's stage scan with its
+     buffer over a 4-process "stage" axis, within ``T_TOL`` of the layer
+     loop and of the one-process scan; P3 phase M's mixtral-8x7b step on a
+     (1, 4) mesh (two experts per rank through the EP branch): loss and
+     moe_aux within tolerance of phase M's first step, the drop fraction
+     summed over the ranks within ``P3_DROP_ATOL`` of phase M's, each
+     process's peak memory and state share;
+   - P2: ``python -m repro_torch.launch.replay`` over P1's run (unsharded
+     re-execution, two workers): ``deferred check: ok=True`` with one
+     hindsight row per step;
+21. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
+   paths A, R1, B, C, A2, W, W2, R3, H, D and P and their passes over the
    mixtral state and phase F's four states, outside that count; for the
    four ``ops`` kernels, the launches of their own phase), the card line,
    and last the JSON line ``{"ok": true, "device": {...}}``.
@@ -215,11 +242,12 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
 ``--kernels-only`` stops after phase 2, ``--mixtral-only`` runs phase M
 alone after the build, ``--families-only`` phase F alone, ``--serve-only``
 phase S alone, ``--handsfree-only`` phase H alone, ``--dist-only``
-path A (which phase D reads) and phase D, and ``--tools-only`` phase S,
-path A2 and phase T (T4 then reads A2's run). Any failed phase, and any of
-phase D's processes that fails, exits non-zero before the last line is
-printed. The run directories live under ``build/chip_smoke`` (git-ignored)
-and are removed at the end.
+path A (which phase D reads) and phase D, ``--tools-only`` phase S,
+path A2 and phase T (T4 then reads A2's run), and ``--parallel-only``
+path A and phase P (P3's reference step then runs in this process).
+Any failed phase, and any of phase D's or phase P's processes that fails,
+exits non-zero before the last line is printed. The run directories live
+under ``build/chip_smoke`` (git-ignored) and are removed at the end.
 """
 from __future__ import annotations
 
@@ -251,6 +279,8 @@ B_BOUNDS = {"mu": 1e-2, "nu": 1e-3}
 # else raw; these put the measured moment amplitudes across all three
 TIGHT_BOUNDS = {"mu": 1e-5, "nu": 1e-8}
 A_TIP = f"A::train@{EPOCHS - 1}.0"
+# path A's (step, loss, grad_norm, wall) per step, for phase P1
+A_STEPS: list = []
 # R2's merged rows, kept for phase D's replay hosts to match
 R2_ROWS = os.path.join(WORK, "r2_merged_replay.jsonl")
 # W, W2 and R3 run florbench-100m at full width cut to LIN_LAYERS layers,
@@ -996,11 +1026,13 @@ def main_path_a(torch, ops, dev, smoke=False):
     run = os.path.join(WORK, "path_a")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = launch_train(dev, run, EPOCHS, "--run-id", "A", smoke=smoke)
+    out = launch_train(dev, run, EPOCHS, "--run-id", "A", "--print-steps",
+                       smoke=smoke)
     sync(torch, dev)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     state = out["state"]
+    A_STEPS[:] = out["steps"]
     if int(state.step) != EPOCHS * STEPS:
         fail(f"path A state.step {int(state.step)} != {EPOCHS * STEPS}")
     store = CheckpointStore(STORE)
@@ -1743,6 +1775,8 @@ def phase_m(torch, dev, hbm_bps) -> dict:
     r = record_and_replay(torch, dev, cfg, init_state, train_step, run,
                           (M_BATCH, M_SEQ, M_EPOCHS, M_STEPS), ("M2", "M3"))
     rows = r["rows"]
+    for key in LOG_KEYS:        # the first step's, for phase P3
+        M_FIRST[key] = next(x["value"] for x in rows if x["key"] == key)
     drops = [x["value"] for x in rows if x["key"] == "moe_dropped"]
     say(f"M2 record: {M_EPOCHS}x{M_STEPS} steps of {M_BATCH}x{M_SEQ} tokens, "
         f"no checkpoint materialized; loss "
@@ -2309,9 +2343,10 @@ def d_start(role: str, n: int, dev, smoke: bool) -> list:
         stderr=subprocess.PIPE, text=True) for r in range(n)]
 
 
-def d_wait(role: str, procs: list, timeout: int) -> list:
+def d_wait(role: str, procs: list, timeout: int, run_dir=None) -> list:
     """Wait for a fleet from ``d_start``; each process must exit 0. Returns
-    their results (``path_d/<role>_p<rank>.json``) by rank."""
+    their results (``<run_dir>/<role>_p<rank>.json``, phase D's run dir by
+    default) by rank."""
     n = len(procs)
     try:
         for r, p in enumerate(procs):
@@ -2319,7 +2354,7 @@ def d_wait(role: str, procs: list, timeout: int) -> list:
             for line in out.strip().splitlines():
                 say(f"  {role} p{r}| {line}")
             if p.returncode != 0:
-                fail(f"phase D {role} process {r} exited {p.returncode}:\n"
+                fail(f"{role} fleet process {r} exited {p.returncode}:\n"
                      f"{err[-4000:]}")
     finally:
         for p in procs:
@@ -2328,7 +2363,7 @@ def d_wait(role: str, procs: list, timeout: int) -> list:
                 p.wait()
     out = []
     for r in range(n):
-        with open(os.path.join(D_RUN, f"{role}_p{r}.json")) as f:
+        with open(os.path.join(run_dir or D_RUN, f"{role}_p{r}.json")) as f:
             out.append(json.load(f))
     return out
 
@@ -2632,6 +2667,489 @@ def phase_d(torch, dev, digests_a: dict, smoke=False) -> dict:
         f"compared {m[2]} hindsight {m[3]}; {same}")
     say(f"phase D: D1 {d1:.2f} s, then side by side D2a {d2a:.2f} s, D2b "
         f"{d2b:.2f} s and D3 {d3:.2f} s")
+    return counts
+
+
+# ------------------------------------------------------------- phase P --
+# phase P: sharded model compute, four processes sharing the card through
+# gloo on a loopback coordinator (``--d-child`` processes, as phase D).
+# P1's tolerances are the launcher test's (tests/test_torch_sharded_step.py
+# BF16_LOSS_RTOL, BF16_GN_RTOL), fixed on the CPU: bf16
+# compute sharded against unsharded, at most 2.7e-4 (loss) and 1.6e-2
+# (grad_norm) relative at smoke widths; the tip's leaves within P_STATE_TOL
+# of each leaf's largest magnitude (9e-5 .. 1.6e-4 measured there). P3
+# holds mixtral to phase M's one-process step: loss as P1, moe_aux within
+# P3_AUX_RTOL (5e-3 measured), and the drop fraction summed over the four
+# ranks within P3_DROP_ATOL of the one-process one (the reported
+# moe_dropped is the first "model" rank's, as the reference's replicated
+# out_spec reads it). P4 is phase T2's setup and tolerance.
+P_MESH = (2, 2)
+P_RUN = os.path.join(WORK, "path_p")
+# P1 runs one epoch of path A's steps (its tip is A::train@0.0's peer)
+P_EPOCHS = 1
+# P1 checkpoints every epoch, as path A does (``--no-adaptive``): with the
+# controller deciding, at the launcher's default budget it declines every
+# checkpoint of this run (the store's calibrated ~20 MB/s puts the 1.32 GB
+# state at ~66 s against a ~5 s epoch), and then there is no tip to hold
+# to path A's and no sharded checkpoint for P2 to restore
+P_LOSS_RTOL, P_GN_RTOL, P_STATE_TOL = 1e-3, 2e-2, 1e-3
+P3_MESH, P3_AUX_RTOL, P3_DROP_ATOL = (1, 4), 1e-2, 2e-3
+P0_SIZES = (1 << 20, 64 << 20)
+# phase M's first step (loss, moe_aux, moe_dropped), kept for P3
+M_FIRST: dict = {}
+
+
+def p1_child(rank: int, port: int, dev: str, smoke: bool):
+    """One P1 process: ``repro_torch.launch.train.main`` (the normal entry
+    point, in this process) as process ``rank`` of a (2, 2) fleet with path
+    A's seed, batches, steps and checkpoints; then its collective counts,
+    peak memory and kernel launches."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.parallel import collectives as col
+
+    dev_t = torch.device(dev)
+    if dev_t.type == "cuda":
+        torch.cuda.set_device(dev_t)
+        torch.cuda.reset_peak_memory_stats(dev_t)
+    ops.reset_launch_counts()
+    col.reset_counts()
+    out = launcher.main([
+        "--arch", "florbench-100m", "--device", dev_t.type,
+        *(["--smoke"] if smoke else []), "--batch", str(BATCH), "--seq",
+        str(SEQ), "--epochs", str(P_EPOCHS), "--steps-per-epoch",
+        str(STEPS),
+        "--seed", str(SEED), "--run-dir", P_RUN, "--print-steps",
+        "--no-adaptive",
+        "--mesh", f"{P_MESH[0]}x{P_MESH[1]}", "--num-processes",
+        str(P_MESH[0] * P_MESH[1]), "--process-id", str(rank),
+        "--coordinator", f"127.0.0.1:{port}"])
+    from repro_torch.utils.pytree import tree_leaves
+    local = sum(x.to_local().numel() * x.to_local().element_size()
+                for x in tree_leaves(out["state"]))
+    whole = sum(x.numel() * x.element_size()
+                for x in tree_leaves(out["state"]))
+    res = {"rank": rank, "steps": out["steps"],
+           "collectives": col.counts(), "launches": ops.launch_counts(),
+           "local_bytes": local, "state_bytes": whole,
+           "peak_gb": (torch.cuda.max_memory_allocated(dev_t) / 1e9
+                       if dev_t.type == "cuda" else 0.0),
+           "ckpt": [{k: st.get(k) for k in ("key", "materialize_s")}
+                    for st in out["ckpt_stats"]]}
+    with open(os.path.join(P_RUN, f"p1_p{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def p_child(rank: int, port: int, dev: str, smoke: bool):
+    """One process of phase P's other fleet: P0 the transport probe and
+    the bit-determinism of the sharded step on a (2, 2) mesh, P4 the stage
+    scan on a 4-rank "stage" axis, P3 mixtral on a (1, 4) mesh."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.parallel.rendezvous import init_distributed
+
+    dev_t = torch.device(dev)
+    if dev_t.type == "cuda":
+        torch.cuda.set_device(dev_t)
+    n = 4
+    init_distributed(f"127.0.0.1:{port}", rank, n)
+    res = {"rank": rank}
+    try:
+        mesh = DeviceMesh(dev_t.type, torch.arange(n).reshape(P_MESH),
+                          mesh_dim_names=("data", "model"))
+        res["p0"] = p0_probe(torch, dev_t, mesh)
+        res["p1_det"] = p1_determinism(torch, dev_t, mesh, smoke)
+        stage = DeviceMesh(dev_t.type, torch.arange(n),
+                           mesh_dim_names=("stage",))
+        res["p4"] = p4_stage_scan(torch, dev_t, stage, rank, smoke)
+        m14 = DeviceMesh(dev_t.type, torch.arange(n).reshape(P3_MESH),
+                         mesh_dim_names=("data", "model"))
+        res["p3"] = p3_mixtral(torch, dev_t, m14, smoke)
+        with open(os.path.join(P_RUN, f"parallel_p{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def p0_probe(torch, dev, mesh) -> list:
+    """P0: each collective on ``dev`` tensors of 1 and 64 MiB over both
+    axes, through the module's transport, bit for bit against the CPU."""
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import use_mesh
+
+    with use_mesh(mesh):
+        rows = col.probe(dev, sizes=P0_SIZES, reps=3)
+    return rows
+
+
+def p1_determinism(torch, dev, mesh, smoke) -> dict:
+    """The sharded florbench-100m step twice from the same state (path A's
+    seed and first batch): the same bits on every leaf and metric."""
+    import repro_torch.configs as C
+    from repro_torch.data import synthetic_batch
+    from repro_torch.train.step import build_train_step
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = (C.get_smoke if smoke else C.get)("florbench-100m")
+    init_state, ts = build_train_step(cfg, device=dev, mesh=mesh)
+    state = init_state(SEED)
+    batch = synthetic_batch(cfg, BATCH, SEQ, 0, SEED)
+    a, ma = ts(state, batch)
+    b, mb = ts(state, batch)
+    same = all(bits_equal(torch, x.to_local(), y.to_local())
+               for x, y in zip(tree_leaves(a), tree_leaves(b))) and all(
+        bits_equal(torch, ma[k], mb[k]) for k in ma)
+    del a, b, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"same_bits": same, "loss": float(ma["loss"])}
+
+
+def p4_stage_scan(torch, dev, mesh, rank, smoke) -> dict:
+    """P4: phase T2's setup — florbench-100m's 12 blocks as 4 stages of 3,
+    8 microbatches of a 16 x 512 batch, f32 — with the stage buffer
+    sharded over the 4-process "stage" axis; rank 0 holds it to the plain
+    layer loop (T2's reference) and to the one-process scan."""
+    import repro_torch.configs as C
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import (_embed_inputs, _layer,
+                                                dense_block,
+                                                rope_tables_for)
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.pipeline import stage_scan
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.train.step import batch_to_device
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = (C.get_smoke if smoke else C.get)("florbench-100m").replace(
+        dtype="float32")
+    per = cfg.num_layers // T_STAGES
+    params = build_model(cfg).init(SEED, dev)
+    tokens = batch_to_device(synthetic_batch(cfg, T_BATCH, SEQ, 0, SEED),
+                             dev)["tokens"]
+    with torch.no_grad():
+        x = _embed_inputs(cfg, params, tokens, None)
+        rope = rope_tables_for(cfg, x.shape[1], dev)
+        stages = tree_map(lambda w: w.reshape(T_STAGES, per, *w.shape[1:]),
+                          params["layers"])
+
+        def stage_fn(p, h):
+            for i in range(per):
+                h = dense_block(cfg, _layer(p, i), h, None, rope)
+            return h
+
+        col.reset_counts()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with use_mesh(mesh, rules={"stage": [("stage",), ()]}):
+            got = stage_scan(stage_fn, stages, x, microbatches=T_MICRO)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        out = {"wall_s": wall, "collectives": col.counts(by_op=True)}
+        if rank == 0:
+            want = x
+            for i in range(cfg.num_layers):
+                want = dense_block(cfg, _layer(params["layers"], i), want,
+                                   None, rope)
+            one = stage_scan(stage_fn, stages, x, microbatches=T_MICRO)
+            scale = want.double().abs().max()
+            out["err"] = float((got.double() - want.double()).abs().max()
+                               / scale)
+            out["err_one"] = float((got.double() - one.double()).abs().max()
+                                   / scale)
+    del params, stages, x, got
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def routed_drops(torch, moe_mod, cfg, p, x_flat, cap, off, e_local):
+    """(choices routed to experts [off, off + e_local), of them dropped) in
+    one ``moe_local`` call, recomputed from its router."""
+    _, ids, _ = moe_mod.route(cfg, p["router"], x_flat)
+    local = ids.reshape(-1) - off
+    mine = (local >= 0) & (local < e_local)
+    key = torch.where(mine, local, e_local)
+    counts = torch.zeros(e_local + 1, dtype=torch.int64,
+                         device=x_flat.device).index_add_(
+        0, key, torch.ones_like(key))[:e_local]
+    return int(counts.sum()), int((counts - cap).clamp_min(0).sum())
+
+
+def p3_mixtral(torch, dev, mesh, smoke) -> dict:
+    """P3: mixtral-8x7b at phase M's widths and cut, phase M's first step
+    (seed, batch) through the sharded step on a (1, 4) mesh: two experts
+    per rank through the EP branch. Each rank also counts the choices its
+    experts were routed and dropped, so the drop fraction over the four
+    ranks can be held to the one-process one."""
+    import repro_torch.configs as C
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import collectives as col
+    from repro_torch.train.step import build_train_step
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = C.get_smoke("mixtral-8x7b").replace(num_layers=1) if smoke \
+        else mixtral_cfg()
+    batch, seq = (2, 64) if smoke else (M_BATCH, M_SEQ)
+    counted = []
+    orig = moe_mod.moe_local
+
+    def counting(cfg_, p, x_flat, cap, e_offset=0, e_local=None):
+        with torch.no_grad():
+            counted.append(routed_drops(torch, moe_mod, cfg_, p, x_flat, cap,
+                                        e_offset, e_local))
+        return orig(cfg_, p, x_flat, cap, e_offset, e_local)
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    moe_mod.moe_local = counting
+    try:
+        init_state, ts = build_train_step(cfg, device=dev, mesh=mesh)
+        t0 = time.perf_counter()
+        state = init_state(SEED)
+        sync(torch, dev)
+        t_init = time.perf_counter() - t0
+        col.reset_counts()
+        t0 = time.perf_counter()
+        state, m = ts(state, synthetic_batch(cfg, batch, seq, 0, SEED))
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        moe_mod.moe_local = orig
+    local = sum(x.to_local().numel() * x.to_local().element_size()
+                for x in tree_leaves(state))
+    whole = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    out = {"loss": float(m["loss"]), "moe_aux": float(m["moe_aux"]),
+           "moe_dropped": float(m["moe_dropped"]), "routed_dropped": counted,
+           "wall_s": wall, "init_s": t_init, "local_bytes": local,
+           "state_bytes": whole, "collectives": col.counts(),
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                       if dev.type == "cuda" else 0.0)}
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def p3_reference(torch, dev, smoke) -> dict:
+    """Phase M's first step in one process (when phase M did not run in
+    this call): loss, moe_aux, moe_dropped."""
+    import repro_torch.configs as C
+    from repro_torch.data import synthetic_batch
+    from repro_torch.train.step import build_train_step
+
+    cfg = C.get_smoke("mixtral-8x7b").replace(num_layers=1) if smoke \
+        else mixtral_cfg()
+    batch, seq = (2, 64) if smoke else (M_BATCH, M_SEQ)
+    init_state, ts = build_train_step(cfg, device=dev)
+    state, m = ts(init_state(SEED), synthetic_batch(cfg, batch, seq, 0,
+                                                   SEED))
+    out = {k: float(m[k]) for k in LOG_KEYS}
+    del state, m
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def axis_line(counts: dict) -> str:
+    return "; ".join(f"{a}: {c['calls']} calls, {c['bytes'] / 1e9:.4f} GB, "
+                     f"{c['seconds']:.3f} s" for a, c in counts.items())
+
+
+def phase_p(torch, dev, steps_a: list, smoke=False) -> dict:
+    """Phase P: P0 the transport probe, P1 the sharded launcher fleet
+    (with the sharded step's determinism beside it), P2 the replay
+    launcher over P1's run, P3 mixtral through the EP branch, P4 the stage
+    scan on a "stage" axis. Returns P1's kernel launches over its four
+    processes."""
+    import repro_torch.configs as C
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.parallel.collectives import STAGED
+    from repro_torch.utils.pytree import tree_leaves_with_paths
+
+    shutil.rmtree(P_RUN, ignore_errors=True)
+    os.makedirs(P_RUN)
+    t_phase = time.perf_counter()
+    # ---- P1: the launcher fleet ----
+    t0 = time.perf_counter()
+    recs = d_wait("p1", d_start("p1", 4, dev, smoke), timeout=900,
+                  run_dir=P_RUN)
+    p1 = time.perf_counter() - t0
+    steps = recs[0]["steps"]
+    if any([x[:3] for x in r["steps"]] != [x[:3] for x in steps]
+           for r in recs[1:]):
+        fail("P1: the four processes report different step metrics")
+    steps_a = steps_a[:P_EPOCHS * STEPS]
+    if len(steps) != P_EPOCHS * STEPS or len(steps_a) != len(steps):
+        fail(f"P1 ran {len(steps)} steps, path A {len(steps_a)}")
+    gaps = []
+    for (i, loss, gn, _), (_, loss_a, gn_a, _) in zip(steps, steps_a):
+        gl, gg = abs(loss - loss_a) / abs(loss_a), abs(gn - gn_a) / abs(gn_a)
+        gaps.append((gl, gg))
+        if not (gl <= P_LOSS_RTOL and gg <= P_GN_RTOL):
+            fail(f"P1 step {i}: loss {loss} / grad_norm {gn} against path "
+                 f"A's {loss_a} / {gn_a} (rtol {P_LOSS_RTOL} / {P_GN_RTOL})")
+    counts: dict = {}
+    for r in recs:
+        if r["local_bytes"] * 2 > r["state_bytes"]:
+            fail(f"P1 process {r['rank']} holds {r['local_bytes']} of the "
+                 f"{r['state_bytes']}-byte state")
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        walls = [w for *_, w in r["steps"]]
+        say(f"P1 process {r['rank']}: step wall {statistics.median(walls):.3f}"
+            f" s median ({', '.join(f'{w:.3f}' for w in walls)}); "
+            f"collectives {axis_line(r['collectives'])}; peak "
+            f"{r['peak_gb']:.2f} GB; state {r['local_bytes'] / 1e9:.4f} of "
+            f"{r['state_bytes'] / 1e9:.4f} GB; #2 "
+            f"{r['launches'].get('fingerprint', 0)} / #1 "
+            f"{r['launches'].get('fingerprint_changed', 0)} launches; "
+            f"checkpoints {[c['key'] for c in r['ckpt']]}")
+    store = CheckpointStore(os.path.join(P_RUN, "store"))
+    tips = sorted(int(k.split("_at_")[1].split(".")[0])
+                  for k in store.list_keys()
+                  if "_at_" in k and ".shard" not in k)
+    if not tips:
+        fail("P1 wrote no checkpoint, so there is no tip")
+    e = tips[-1]
+    cfg = (C.get_smoke if smoke else C.get)("florbench-100m")
+    tip = store.get_tree(f"train@{e}.0", like=placeholder_like(torch, cfg,
+                                                               dev))
+    ref = CheckpointStore(STORE).get_tree(
+        f"A::train@{e}.0", like=placeholder_like(torch, cfg, dev))
+    worst = {"params": 0.0, "moments": 0.0}
+    for (path, x), (_, y) in zip(tree_leaves_with_paths(tip),
+                                 tree_leaves_with_paths(ref)):
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                fail(f"P1 tip {path} differs from path A's")
+            continue
+        d = float((x.double() - y.double()).abs().max()
+                  / y.double().abs().max().clamp_min(1e-30))
+        slot = "params" if ".params" in path else "moments"
+        worst[slot] = max(worst[slot], d)
+    # the moments carry the gradients' bf16 gap, the parameters a step of
+    # lr times it
+    if not (worst["params"] <= P_STATE_TOL
+            and worst["moments"] <= P_GN_RTOL):
+        fail(f"P1 tip train@{e}.0 differs from A::train@{e}.0 by {worst} of "
+             f"a leaf's largest magnitude (tol {P_STATE_TOL} / {P_GN_RTOL})")
+    del tip, ref
+    say(f"P1: python -m repro_torch.launch.train --mesh 2x2 --num-processes "
+        f"4, florbench-100m {P_EPOCHS}x{STEPS} steps at {BATCH}x{SEQ}, "
+        f"sharded step on one card, wall {p1:.2f} s; loss / grad_norm gap "
+        f"to path A at most {max(g for g, _ in gaps):.3e} / "
+        f"{max(g for _, g in gaps):.3e} (tol {P_LOSS_RTOL} / {P_GN_RTOL}); "
+        f"tip train@{e}.0 restored unsharded: params within "
+        f"{worst['params']:.3e}, moments within {worst['moments']:.3e} of "
+        f"A::train@{e}.0's largest magnitudes (tol {P_STATE_TOL} / "
+        f"{P_GN_RTOL})")
+    # ---- P0, P1's determinism, P4, P3: one fleet ----
+    t0 = time.perf_counter()
+    par = d_wait("parallel", d_start("parallel", 4, dev, smoke),
+                 timeout=900, run_dir=P_RUN)
+    t_par = time.perf_counter() - t0
+    rows = par[0]["p0"]
+    if not all(r["bit_equal"] for p in par for r in p["p0"]):
+        fail(f"P0: a collective differs from the CPU's: "
+             f"{[r for p in par for r in p['p0'] if not r['bit_equal']]}")
+    staged = sorted(op for op, v in STAGED.items() if v)
+    for r in rows:
+        say(f"P0 {r['op']} over {r['axis']}, {r['bytes'] >> 20} MiB: "
+            f"{r['route']}, {r['gbps']:.3f} GB/s, bit for bit")
+    say(f"P0: staged through pinned host buffers: {staged}; the others "
+        f"handed to gloo on CUDA tensors; every result bit-equal to the CPU's")
+    if not all(p["p1_det"]["same_bits"] for p in par):
+        fail("P1: two runs of the sharded step from one state differ")
+    say(f"P1 determinism: the sharded step twice from one state (path A's "
+        f"seed, first batch): the same bits on every leaf and metric in all "
+        f"four processes (loss {par[0]['p1_det']['loss']:.6f})")
+    p4 = par[0]["p4"]
+    if not (p4["err"] <= T_TOL and p4["err_one"] <= T_TOL):
+        fail(f"P4: stage scan over the stage axis differs by {p4['err']:.3e}"
+             f" (layer loop) / {p4['err_one']:.3e} (one-process scan)")
+    say(f"P4: stage_scan over a 4-process 'stage' axis, {T_MICRO} "
+        f"microbatches of {T_BATCH // T_MICRO} x {SEQ}, f32: max diff "
+        f"{p4['err']:.3e} of the largest output against the layer loop, "
+        f"{p4['err_one']:.3e} against the one-process scan (tol {T_TOL}); "
+        f"wall {max(p['p4']['wall_s'] for p in par):.3f} s; "
+        + "; ".join(f"rank {p['rank']} ppermute "
+                    f"{p['p4']['collectives']['stage']['ppermute']['calls']} "
+                    f"calls" for p in par[:1]))
+    p3 = [p["p3"] for p in par]
+    want = M_FIRST or p3_reference(torch, dev, smoke)
+    routed = sum(r[0] for p in p3 for r in p["routed_dropped"])
+    dropped = sum(r[1] for p in p3 for r in p["routed_dropped"])
+    drop_all = dropped / max(routed, 1)
+    r0 = p3[0]["routed_dropped"][0]
+    checks = [("loss", p3[0]["loss"], want["loss"],
+               abs(p3[0]["loss"] - want["loss"]) / abs(want["loss"]),
+               P_LOSS_RTOL),
+              ("moe_aux", p3[0]["moe_aux"], want["moe_aux"],
+               abs(p3[0]["moe_aux"] - want["moe_aux"]) / abs(want["moe_aux"]),
+               P3_AUX_RTOL),
+              ("drop fraction over the ranks", drop_all, want["moe_dropped"],
+               abs(drop_all - want["moe_dropped"]), P3_DROP_ATOL)]
+    for name, got, ref_v, gap, tol in checks:
+        if not gap <= tol:
+            fail(f"P3 {name} {got} against phase M's {ref_v}: gap {gap:.3e} "
+                 f"(tol {tol})")
+    if abs(p3[0]["moe_dropped"] - r0[1] / max(r0[0], 1)) > 1e-6:
+        fail(f"P3 moe_dropped {p3[0]['moe_dropped']} is not the first "
+             f"rank's drop fraction {r0}")
+    for p in p3:
+        if p["local_bytes"] * 2 > p["state_bytes"]:
+            fail(f"P3: a process holds {p['local_bytes']} of the "
+                 f"{p['state_bytes']}-byte state")
+    say(f"P3: mixtral-8x7b ({'smoke' if smoke else 'published widths'}, 1 "
+        f"layer) on a (1, 4) mesh, 2 experts per rank (EP), one step of "
+        f"{'2x64' if smoke else f'{M_BATCH}x{M_SEQ}'} tokens: "
+        + "; ".join(f"{n} {g:.6f} vs {r:.6f} (gap {gp:.3e}, tol {t})"
+                    for n, g, r, gp, t in checks)
+        + f"; moe_dropped (first rank's experts, as reported) "
+        f"{p3[0]['moe_dropped']:.6f}; step {p3[0]['wall_s']:.2f} s, init "
+        f"{p3[0]['init_s']:.2f} s; per process "
+        + ", ".join(f"peak {p['peak_gb']:.2f} GB / state "
+                    f"{p['local_bytes'] / 1e9:.2f} of "
+                    f"{p['state_bytes'] / 1e9:.2f} GB" for p in p3)
+        + f"; collectives {axis_line(p3[0]['collectives'])}")
+    say(f"P0/P1-determinism/P4/P3 fleet wall {t_par:.2f} s")
+    # ---- P2: the replay launcher over P1's run ----
+    cmd = [sys.executable, "-m", "repro_torch.launch.replay",
+           "--run-dir", P_RUN, "--probe", "train", "--nworkers", "2",
+           "--check", "--batch", str(BATCH), "--seq", str(SEQ),
+           "--seed", str(SEED), "--device", torch.device(dev).type,
+           *(["--smoke"] if smoke else [])]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    p2 = time.perf_counter() - t0
+    for line in r.stdout.strip().splitlines():
+        say(f"  P2| {line}")
+    if r.returncode != 0:
+        fail(f"P2 replay launcher exited {r.returncode}:\n"
+             f"{r.stderr[-4000:]}")
+    m = re.search(r"deferred check: ok=(\w+) compared=(\d+) "
+                  r"hindsight=(\d+)", r.stdout)
+    if not m or m[1] != "True" or int(m[3]) != P_EPOCHS * STEPS:
+        fail("P2 printed no passing deferred check with one hindsight row "
+             "per step")
+    say(f"P2: python -m repro_torch.launch.replay over P1's run (unsharded "
+        f"re-execution, 2 workers): deferred check ok=True compared {m[2]} "
+        f"hindsight {m[3]}; wall {p2:.2f} s")
+    say(f"phase P: P1 {p1:.2f} s, P0/P3/P4 fleet {t_par:.2f} s, P2 "
+        f"{p2:.2f} s; total {time.perf_counter() - t_phase:.2f} s")
     return counts
 
 
@@ -3010,7 +3528,11 @@ def main():
         global BATCH, SEQ
         role, rank, port, dev, smoke, BATCH, SEQ = sys.argv[2:9]
         BATCH, SEQ = int(BATCH), int(SEQ)
-        d_child(role, int(rank), int(port), dev, smoke == "1")
+        child = {"p1": p1_child, "parallel": p_child}.get(role)
+        if child is not None:
+            child(int(rank), int(port), dev, smoke == "1")
+        else:
+            d_child(role, int(rank), int(port), dev, smoke == "1")
         return
     import torch
 
@@ -3078,6 +3600,15 @@ def main():
         say(f"launches path H: {json.dumps(phase_h(torch, ops, dev))}")
         lap("H")
         say("--handsfree-only: stopping after phase H")
+        return
+    if "--parallel-only" in sys.argv[1:]:
+        # phase P reads path A's steps and store (P1's comparisons)
+        main_path_a(torch, ops, dev)
+        torch.cuda.empty_cache()
+        lap("A")
+        say(f"launches path P: {json.dumps(phase_p(torch, dev, A_STEPS))}")
+        lap("P")
+        say("--parallel-only: stopping after phase P")
         return
     if "--dist-only" in sys.argv[1:]:
         # phase D reads path A's run (D2a's comparison, D3's replay)
@@ -3149,9 +3680,12 @@ def main():
     torch.cuda.empty_cache()
     counts_d = phase_d(torch, dev, digests_a)
     lap("D")
+    torch.cuda.empty_cache()
+    counts_p = phase_p(torch, dev, A_STEPS)
+    lap("P")
     paths = {"A": counts_a, "R1": counts_r1, "B": counts_b, "C": counts_c,
              "A2": counts_a2, "W": counts_w, "W2": counts_w2,
-             "R3": counts_r3, "H": counts_h, "D": counts_d}
+             "R3": counts_r3, "H": counts_h, "D": counts_d, "P": counts_p}
     for tag, counts in paths.items():
         say(f"launches path {tag}: {json.dumps(counts)}")
     say(json.dumps({"kernels": kernels_line(results, paths)}))

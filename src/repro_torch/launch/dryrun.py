@@ -25,8 +25,9 @@ The graph text is archived compressed under ``results/fx/<tag>.fx.zst``
 (``launch/reanalyze.py`` re-derives the rows from it). ``--device``
 (default ``cuda``) is the fake tensors' device; the CPU gives the same
 graph but for the device of the few tensors a step makes itself.
-``--multi-pod`` / ``--both-meshes`` need sharded model compute (ROADMAP
-queue 1, item 10) and fail.
+``--multi-pod`` / ``--both-meshes`` need sharded model compute of every
+family on the production mesh, the next slice of the port (ROADMAP queue
+1, item 3), and fail.
 """
 from __future__ import annotations
 
@@ -43,9 +44,9 @@ from repro_torch.configs import (SHAPES, ShapeSpec, cell_applicable, get,
 from repro_torch.launch.mesh import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16
 
 FX_DIR = os.path.join("results", "fx")
-MESH_ERROR = ("the multi-pod and production meshes shard model compute, "
-              "which this package does not run yet (ROADMAP queue 1, item "
-              "10: sharded model compute)")
+MESH_ERROR = ("the multi-pod and production meshes shard model compute "
+              "of every family, which runs in the next slice of the port "
+              "(ROADMAP queue 1, item 3: sharded model compute)")
 
 
 def _apply_overrides(cfg, overrides: dict):

@@ -6,8 +6,10 @@ device and starts no process group.
 
 A ``DeviceMesh`` has one process per position, so a local mesh is built
 over the running fleet (``parallel/rendezvous.py``): ``data * model``
-processes, this one among them. The production mesh shards model compute,
-which this package does not run yet (ROADMAP queue 1, item 10).
+processes, this one among them; the dense and MoE train step runs sharded
+on it (``train.step.build_train_step(mesh=)``). The production mesh adds
+the "pod" axis and the serving layouts, which run sharded in the next
+slice of the port (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ NVLINK_BW = 450e9               # NVLink 4: bytes/s per direction per GPU
 
 def make_production_mesh(*, multi_pod: bool = False):
     raise NotImplementedError(
-        "the production mesh shards model compute (constrain under a mesh, "
-        "expert parallelism, a stage axis), which this package does not run "
-        "yet (ROADMAP queue 1, item 10: sharded model compute)")
+        "the production mesh (a 'pod' axis over many hosts, the serving "
+        "layouts, every family) needs sharded model compute beyond the "
+        "dense and MoE step: the next slice of the port (ROADMAP queue 1, "
+        "item 3); a local ('data', 'model') mesh over a fleet runs that "
+        "step: make_local_mesh")
 
 
 def make_local_mesh(data: int = 1, model: int = 1, *, device: str = "cuda"):

@@ -2,7 +2,9 @@
 (TrainState, batch, caches) to a ``parallel.sharding.MeshSharding`` — a
 spec on the mesh, whose ``placements`` are its torch form — through the
 logical-axis resolver, as the reference package's ``launch/specs.py`` does
-with NamedShardings."""
+with NamedShardings. The sharded train step lays its state out by
+``state_shardings`` (its ``init_state`` and every step's output) and each
+rank takes the rows ``batch_shardings`` gives it from the global batch."""
 from __future__ import annotations
 
 import torch

@@ -26,12 +26,15 @@ Fleet record: ``--mesh AxB --num-processes A*B``, one process per mesh
 position (a torch ``DeviceMesh`` has one process per position), each
 started with its own ``--process-id`` and the same ``--coordinator``
 (``host:port`` of process 0's gloo rendezvous; the processes may share one
-card). Every process trains the same replicated state; the record runs
-sharded over the mesh (``RecordSpec(mesh=, distributed=)``): each process
-checkpoints only the shards it owns and process 0 stitches the v4
-manifests. The launcher places the state on no layout of its own, as the
-reference launcher does, so its replicated leaves are filed by process 0. A
-relaunch resumes from the last stitched epoch.
+card). The fleet trains SHARDED, as the reference launcher's GSPMD step
+does under the same flags: ``build_train_step(cfg, mesh=)`` lays the state
+out by ``launch.specs.state_shardings`` (no process holds it whole) and
+every step runs on the local shards with the collectives of
+``parallel/collectives.py``. The record runs sharded over the mesh
+(``RecordSpec(mesh=, distributed=)``): each process checkpoints only the
+shards it owns and process 0 stitches the v4 manifests. A relaunch resumes
+from the last stitched epoch; the run replays through
+``launch.replay`` unsharded, on one or more hosts.
 """
 from __future__ import annotations
 
@@ -43,8 +46,9 @@ def main(argv=None):
     """Parse ``argv`` (default: the command line), record the run, and
     return {"state": final TrainState, "run_dir", "store", "ckpt_stats":
     the pipeline's per-checkpoint stats, "warmstart": the warm start's
-    stats per block (empty without ``--parent-run``)} for callers that
-    drive the launcher in-process."""
+    stats per block (empty without ``--parent-run``), "steps": (step,
+    loss, grad_norm, wall s) per step with ``--print-steps``} for callers
+    that drive the launcher in-process."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="florbench-100m")
     ap.add_argument("--smoke", action="store_true",
@@ -72,6 +76,8 @@ def main(argv=None):
                          "bytes to the checkpoint store, logging a ref row "
                          "(0 disables)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--print-steps", action="store_true",
+                    help="print each step's loss, grad_norm and wall")
     ap.add_argument("--mesh", default=None,
                     help="AxB: a (data, model) DeviceMesh of A*B positions, "
                          "one process each (needs --num-processes A*B)")
@@ -122,10 +128,9 @@ def main(argv=None):
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     if args.layers:
         cfg = C.with_layers(cfg, args.layers)
-    init_state, ts = build_train_step(cfg, device=args.device)
-    state = init_state(args.seed)
     if mesh_shape is None:
-        return _record(args, cfg, state, ts, None, None)
+        init_state, ts = build_train_step(cfg, device=args.device)
+        return _record(args, cfg, init_state(args.seed), ts, None, None)
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -138,8 +143,11 @@ def main(argv=None):
                               mesh_shape),
                           mesh_dim_names=("data", "model"))
         print(f"distributed record: process {group.process_id}/"
-              f"{group.num_processes} on mesh {args.mesh}", flush=True)
-        out = _record(args, cfg, state, ts, mesh, group)
+              f"{group.num_processes} on mesh {args.mesh}, sharded step",
+              flush=True)
+        init_state, ts = build_train_step(cfg, device=args.device,
+                                          mesh=mesh)
+        out = _record(args, cfg, init_state(args.seed), ts, mesh, group)
         dist.barrier()
         return out
     finally:
@@ -166,7 +174,7 @@ def _record(args, cfg, state, ts, mesh, group) -> dict:
             print(f"epoch {epoch} loss {float(m['loss']):.4f}", flush=True)
         print(f"vanilla wall {time.time() - t0:.2f}s")
         return {"state": state, "run_dir": args.run_dir, "store": None,
-                "ckpt_stats": [], "warmstart": {}}
+                "ckpt_stats": [], "warmstart": {}, "steps": []}
 
     with flor.Session(
             args.run_dir, mode="record",
@@ -212,6 +220,7 @@ def _record(args, cfg, state, ts, mesh, group) -> dict:
             state = ctx.store.get_tree(f"train@{max(done)}.0", like=state)
 
         t0 = time.time()
+        step_rows = []
         steps = sess.arg("steps_per_epoch", args.steps_per_epoch)
         with sess.checkpointing(state=state) as ckpt:
             for epoch in sess.loop("epochs",
@@ -219,9 +228,17 @@ def _record(args, cfg, state, ts, mesh, group) -> dict:
                 if epoch < resume_from:
                     continue
                 for s in sess.loop("train", range(steps)):
+                    t_step = time.perf_counter()
                     b = synthetic_batch(cfg, args.batch, args.seq,
                                         epoch * steps + s, args.seed)
                     ckpt.state, m = ts(ckpt.state, b)
+                    if args.print_steps:
+                        row = (epoch * steps + s, float(m["loss"]),
+                               float(m["grad_norm"]),
+                               time.perf_counter() - t_step)
+                        step_rows.append(row)
+                        print("step %d loss %.9g grad_norm %.9g wall %.4f s"
+                              % row, flush=True)
                 flor.log("loss", m["loss"])
                 print(f"epoch {epoch} done", flush=True)
         state = ckpt.state
@@ -233,7 +250,8 @@ def _record(args, cfg, state, ts, mesh, group) -> dict:
         torch.cuda.synchronize(state.step.device)
     print(f"record wall {time.time() - t0:.2f}s")
     return {"state": state, "run_dir": args.run_dir, "store": store,
-            "ckpt_stats": ckpt_stats, "warmstart": warmstart}
+            "ckpt_stats": ckpt_stats, "warmstart": warmstart,
+            "steps": step_rows}
 
 
 if __name__ == "__main__":

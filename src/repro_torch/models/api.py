@@ -17,6 +17,7 @@ from repro_torch.models import mamba, mla
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import cache_from_spec, stack_cache_spec
 from repro_torch.models.params import axes_tree, init_params, shape_tree
+from repro_torch.parallel.sharding import current_mesh
 
 # encoder length of the enc-dec decode cells (about 30 s of audio frames
 # after the frontend's subsampling; the frontend itself is a stub)
@@ -43,9 +44,12 @@ class Model:
         """Each parameter's logical axes (the nesting of ``param_spec``)."""
         return axes_tree(self._spec)
 
-    def init(self, seed: int, device):
-        """Materialize the parameter dict on ``device`` from ``seed``."""
-        return init_params(self._spec, seed, self.cfg.param_dtype, device)
+    def init(self, seed: int, device, place=None):
+        """Materialize the parameter dict on ``device`` from ``seed``
+        (``place(path, leaf)`` keeps a process's slice of each leaf as it
+        is made: ``models.params.init_params``)."""
+        return init_params(self._spec, seed, self.cfg.param_dtype, device,
+                           place)
 
     def loss(self, params, batch):
         if self.cfg.family == "audio":
@@ -53,8 +57,17 @@ class Model:
         return tfm.lm_loss(self.cfg, params, batch)
 
     # ----------------------------------------------------------- serving --
+    @staticmethod
+    def _unsharded_serving():
+        if current_mesh() is not None:
+            raise NotImplementedError(
+                "serving under a mesh (the seq_mp / cache_seq decode "
+                "layouts) runs in the next slice of the port (ROADMAP "
+                "queue 1, item 3)")
+
     def prefill(self, params, batch, max_len: int):
         """(caches holding ``max_len`` positions, last-position logits)."""
+        self._unsharded_serving()
         if self.cfg.family == "audio":
             return encdec_mod.encdec_prefill(self.cfg, params, batch,
                                              max_len)
@@ -63,6 +76,7 @@ class Model:
     def decode(self, params, caches, tokens, pos):
         """One step: tokens [B,1] at position ``pos`` (an int or a 0-d
         tensor). Returns (logits [B, vocab_size], new caches)."""
+        self._unsharded_serving()
         if self.cfg.family == "audio":
             return encdec_mod.encdec_decode(self.cfg, params, caches, tokens,
                                             int(pos))

@@ -26,8 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (apply_rope, cache_from_spec,
-                                       dense_spec, recomputed, rms_norm)
+                                       dense_spec, recomputed, rms_norm,
+                                       row_parallel)
 from repro_torch.models.params import ParamSpec
+from repro_torch.parallel.sharding import (constrain, constrain_spec,
+                                           current_mesh, relayout, spec_axes)
 
 NEG_INF = -1e30
 
@@ -134,31 +137,84 @@ def _chunked_sdpa(q, k, v, causal, window, scale, chunk,
     return o.permute(0, 3, 1, 2, 4).to(q.dtype)          # [B,Sq,KV,G,hd]
 
 
+def _core(cfg, q, k, v, causal, window, scale):
+    """Softmax attention over local q [B,Sq,KV,G,hd] and k, v [B,Sk,KV,hd]:
+    the naive or the chunked path, as ``attention_impl`` picks."""
+    S = q.shape[1]
+    impl = cfg.attention_impl
+    if impl == "auto":
+        impl = "chunked" if S > 2048 else "naive"
+    if impl == "naive":
+        return _sdpa(q, k, v, _keep(S, S, 0, 0, causal, window, q.device),
+                     scale)
+    return _chunked_sdpa(q, k, v, causal, window, scale, cfg.attention_chunk,
+                         probs_dtype=getattr(torch, cfg.attention_probs_dtype),
+                         remat_chunk=cfg.attention_remat_chunk)
+
+
+def _sharded_self_attention(cfg, p, x, causal, window, rope, have, specs):
+    """``self_attention`` on local tensors under a mesh: ``x`` laid out by
+    ``have``, the weights by their "model" ``specs``. q and k (v with k)
+    take the reference's constraints — batch over the data axes, the KV
+    groups over "model" where ``num_kv_heads`` divides it, replicated where
+    it does not (q's heads are then all-gathered first); the output
+    projection is row-parallel over the heads "model" shards and the
+    result comes back in ``x``'s layout."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    G, hd = H // KV, cfg.resolved_head_dim()
+    B, S = x.shape[:2]
+    xb = have[0]
+    hax = spec_axes(specs["wq"], 3)[1]
+    kax = spec_axes(specs["wk"], 3)[1]
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(x.dtype))
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if hax and q.shape[2] % G:       # local heads split a KV group
+        q = relayout(q, (xb, None, hax, None), (xb, None, None, None))
+        hax = ()
+    q = apply_rope(q.reshape(B, S, q.shape[2] // G, G, hd), rope)
+    q, qs = constrain_spec(q, ("batch", None, "kv_heads", None, None),
+                           have=(xb, None, hax or None, None, None))
+    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"].to(x.dtype))
+    if "k_norm" in p:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    k = apply_rope(k, rope)
+    kv_have = (xb, None, kax or None, None)
+    k, ks = constrain_spec(k, ("batch", None, "kv_heads", None),
+                           have=kv_have)
+    v = relayout(v, kv_have, ks)
+    o = _core(cfg, q, k, v, causal, window, 1.0 / np.sqrt(hd))
+    o = o.reshape(o.shape[0], S, -1, hd)           # heads laid out as q's KV
+    o_have = (qs[0], None, qs[2], None)
+    wo_h = spec_axes(specs["wo"], 3)[0]
+    heads = spec_axes(o_have, 4)[2] or wo_h
+    o = relayout(o, o_have, (qs[0], None, heads or None, None))
+    wo = relayout(p["wo"], (wo_h or None, None, None),
+                  (heads or None, None, None))
+    out = row_parallel("bsnh,nhd->bsd", o, wo, heads, x.dtype)
+    return relayout(out, (qs[0], None, None), have)
+
+
 def self_attention(cfg, p, x, *, causal=True, window=None, rope=None,
-                   return_kv=False):
+                   return_kv=False, have=None, specs=None):
     """Training self-attention over the full sequence. ``rope`` is the
     (cos, sin) table pair computed once per forward. ``return_kv`` also
     returns the (roped) K/V, which a prefill lays into its cache: eager
     code has no common-subexpression pass to share them, as XLA does for
     the reference."""
+    if current_mesh() is not None:
+        if return_kv:
+            constrain(x, ("batch", None, None))      # serving: next slice
+        return _sharded_self_attention(cfg, p, x, causal, window, rope,
+                                       have, specs)
     hd = cfg.resolved_head_dim()
-    scale = 1.0 / np.sqrt(hd)
     q = apply_rope(_project_q(cfg, p, x), rope)
     k, v = _project_kv(cfg, p, x)
     k = apply_rope(k, rope)
-    S = x.shape[1]
-    impl = cfg.attention_impl
-    if impl == "auto":
-        impl = "chunked" if S > 2048 else "naive"
-    if impl == "naive":
-        o = _sdpa(q, k, v, _keep(S, S, 0, 0, causal, window, x.device),
-                  scale)
-    else:
-        o = _chunked_sdpa(q, k, v, causal, window, scale,
-                          cfg.attention_chunk,
-                          probs_dtype=getattr(torch,
-                                              cfg.attention_probs_dtype),
-                          remat_chunk=cfg.attention_remat_chunk)
+    q = constrain(q, ("batch", None, "kv_heads", None, None))
+    k = constrain(k, ("batch", None, "kv_heads", None))
+    o = _core(cfg, q, k, v, causal, window, 1.0 / np.sqrt(hd))
     out = _out_proj(cfg, p, o)
     return (out, (k, v)) if return_kv else out
 

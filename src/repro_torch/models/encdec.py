@@ -23,6 +23,7 @@ from repro_torch.models.layers import (embed_tokens, embedding_spec,
                                        stack_cache_spec, unembed_spec,
                                        write_layer)
 from repro_torch.models.params import stack_spec
+from repro_torch.parallel.sharding import constrain
 from repro_torch.models.transformer import (_clone, _layer, ce_loss,
                                             padded_vocab, rope_tables_for)
 
@@ -64,6 +65,8 @@ def encdec_param_spec(cfg):
 def encode(cfg, params, enc_embeds):
     """Bidirectional encoder over the frame embeddings -> [B, S_enc, d]."""
     x = enc_embeds.to(getattr(torch, cfg.dtype))
+    # the reference's constraints: under a mesh they raise (next slice)
+    x = constrain(x, ("batch", None, None))
     rope = rope_tables_for(cfg, x.shape[1], x.device)
     for i in range(cfg.num_layers):
         lyr = _layer(params["enc_layers"], i)
@@ -71,7 +74,7 @@ def encode(cfg, params, enc_embeds):
         x = x + attn.self_attention(cfg, lyr["attn"], h, causal=False,
                                     rope=rope)
         h = rms_norm(x, lyr["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(cfg, lyr["mlp"], h)
+        x = constrain(x + mlp_apply(cfg, lyr["mlp"], h), ("batch", None, None))
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -82,7 +85,7 @@ def dec_block(cfg, p, x, enc_out, rope=None):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + attn.cross_attention(cfg, p["cross_attn"], h, enc_out)
     h = rms_norm(x, p["ln3"], cfg.norm_eps)
-    return x + mlp_apply(cfg, p["mlp"], h)
+    return constrain(x + mlp_apply(cfg, p["mlp"], h), ("batch", None, None))
 
 
 def encdec_loss(cfg, params, batch):

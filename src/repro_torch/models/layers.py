@@ -2,7 +2,16 @@
 
 Plain tensor functions mirroring the reference package's layers; the
 compute dtype follows the inputs exactly as there (bf16 activations, f32
-normalization and rope arithmetic)."""
+normalization and rope arithmetic).
+
+Under a mesh (``parallel.sharding.use_mesh``) the same functions run on
+local tensors: a caller passes each activation's layout (``have``, a spec)
+and each weight's remaining spec after its FSDP gather (only "model"
+entries are left: ``sharding.model_spec``). A weight sharded on "model"
+makes its matmul column-parallel (the output stays sharded) or
+row-parallel (partial sums in f32, psummed over "model"); the embedding and
+the logits are vocab-parallel. The reference's ``constrain`` calls sit at
+the same places."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,6 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamSpec
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import (constrain, constrain_spec,
+                                           current_mesh, relayout, spec_axes)
 
 
 def dense_spec(shape, axes, fan_in=None, scale=1.0):
@@ -180,35 +192,85 @@ def padded_vocab_size(vocab: int, multiple: int = 512) -> int:
     return -(-vocab // multiple) * multiple
 
 
-def embed_tokens(cfg, table, tokens, compute_dtype):
+def batch_axis(cfg) -> str:
+    return "batch_dp3" if cfg.dense_layout == "dp" else "batch"
+
+
+def _vocab_axes(w_spec, vdim: int, x_have) -> tuple:
+    """The axes a (gathered) vocab weight stays sharded on for a
+    vocab-parallel matmul: none where the batch already uses them."""
+    vax = spec_axes(w_spec, 2)[vdim]
+    return () if set(vax) & set(spec_axes(x_have, 1)[0]) else vax
+
+
+def embed_tokens(cfg, table, tokens, compute_dtype, have=None,
+                 table_spec=None):
+    """Token embeddings. Under a mesh ``tokens`` is laid out by ``have``
+    and ``table`` by ``table_spec``, and the result is (local embeddings,
+    their spec): a vocab-sharded table looks up its own rows (the others
+    are zero) and psums over the vocab axes — one nonzero term per token,
+    so the sum is exact."""
     # F.embedding, not table[tokens]: the backward of plain indexing adds
     # repeated tokens' rows with atomics on a multithreaded CPU, so a step
     # would not give the same bits twice; embedding's backward sums each
     # row's gradients in one order on the CPU and on the card
-    x = F.embedding(tokens.long(), table).to(compute_dtype)
+    tokens = tokens.long()
+    vax = ()
+    if current_mesh() is not None:
+        vax = _vocab_axes(table_spec, 0, have)
+        table = relayout(table, table_spec, (vax or None, None))
+    if vax:
+        rows = table.shape[0]
+        local = tokens - col.axis_index(vax[0]) * rows
+        mine = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), table) * mine[..., None]
+        x = col.psum(x, vax)
+    else:
+        x = F.embedding(tokens, table)
+    x = x.to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=compute_dtype,
                              device=x.device)
-    return x
+    if current_mesh() is None:
+        return constrain(x, (batch_axis(cfg), None, None))
+    return constrain_spec(x, (batch_axis(cfg), None, None),
+                          have=(have[0], None, None))
 
 
-def lm_logits(cfg, params, x, padded_vocab: int):
-    """Final logits. Uses tied embedding transpose or a separate unembed."""
-    if cfg.tie_embeddings:
-        w = params["embed"]["table"]
+def lm_logits(cfg, params, x, padded_vocab: int, have=None, specs=None):
+    """Final logits. Uses tied embedding transpose or a separate unembed.
+    Under a mesh ``x`` is laid out by ``have`` and ``specs`` holds the
+    parameters' specs: returns (local logits, their spec), vocab-parallel
+    where the weight's vocab dim stays sharded."""
+    tied = cfg.tie_embeddings
+    w = params["embed"]["table"] if tied else params["unembed"]["table"]
+    v0, vax = 0, ()
+    if current_mesh() is not None:
+        w_spec = (specs["embed"]["table"] if tied
+                  else specs["unembed"]["table"])
+        vdim = 0 if tied else 1
+        vax = _vocab_axes(w_spec, vdim, have)
+        keep = [None, None]
+        keep[vdim] = vax or None
+        w = relayout(w, w_spec, tuple(keep))
+        if vax:
+            v0 = col.axis_index(vax[0]) * w.shape[vdim]
+    if tied:
         logits = torch.einsum("bsd,vd->bsv", x, w.to(x.dtype))
     else:
-        w = params["unembed"]["table"]
         logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     # mask padded vocab entries out of the softmax
     if padded_vocab != cfg.vocab_size:
-        pad_mask = torch.arange(padded_vocab, device=x.device) \
-            >= cfg.vocab_size
+        pad_mask = torch.arange(v0, v0 + logits.shape[-1],
+                                device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad_mask, -1e9)
-    return logits
+    if current_mesh() is None:
+        return constrain(logits, (batch_axis(cfg), None, "act_vocab"))
+    return constrain_spec(logits, (batch_axis(cfg), None, "act_vocab"),
+                          have=(have[0], None, vax or None))
 
 
 def unembed_spec(cfg, padded_vocab: int):
@@ -230,7 +292,20 @@ def mlp_spec(cfg, d_ff: int, d_model=None):
     return spec
 
 
-def mlp_apply(cfg, p, x):
+def row_parallel(eq, h, w, axes, dtype):
+    """``einsum(eq, h, w)`` contracting a dim both operands hold sharded
+    over ``axes``: partial sums in f32, psummed, then ``dtype`` (one
+    rounding, as the unsharded matmul's)."""
+    if not axes:
+        return torch.einsum(eq, h, w.to(h.dtype))
+    return col.psum(torch.einsum(eq, h.float(), w.float()), axes).to(dtype)
+
+
+def mlp_apply(cfg, p, x, have=None, specs=None):
+    """The MLP. Under a mesh ``x`` is laid out by ``have`` (replicated over
+    "model" unless the batch uses it) and ``specs`` holds the weights'
+    "model" specs: column-parallel in over "mlp", row-parallel out; the
+    output keeps ``x``'s layout."""
     act = activation(cfg.ffn_activation)
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
     if is_gated(cfg.ffn_activation):
@@ -238,4 +313,13 @@ def mlp_apply(cfg, p, x):
         h = act(g) * h
     else:
         h = act(h)
-    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+    if current_mesh() is None:
+        h = constrain(h, (batch_axis(cfg), None, "act_mlp"))
+        return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+    fax = spec_axes(specs["wi"], 2)[1]
+    h, hs = constrain_spec(h, (batch_axis(cfg), None, "act_mlp"),
+                           have=(have[0], None, fax or None))
+    wo_f = spec_axes(specs["wo"], 2)[0]
+    h = relayout(h, hs, (hs[0], None, wo_f or None))
+    y = row_parallel("bsf,fd->bsd", h, p["wo"], wo_f, x.dtype)
+    return relayout(y, (hs[0], None, None), have)

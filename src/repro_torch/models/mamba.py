@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (dense_spec, norm_spec, recomputed,
                                        rms_norm)
 from repro_torch.models.params import ParamSpec
+from repro_torch.parallel.sharding import constrain
 
 
 # ------------------------------------------------------------ helpers -----
@@ -181,6 +182,8 @@ def mamba1_forward(cfg, p, x, return_cache=False):
     xz = torch.einsum("bsd,dc->bsc", h, p["in_proj"].to(x.dtype))
     din = xz.shape[-1] // 2
     pre_conv, z = xz[..., :din], xz[..., din:]
+    # the reference's constraint: under a mesh it raises (next slice)
+    pre_conv = constrain(pre_conv, ("batch", None, "act_mlp"))
     x1 = F.silu(_causal_conv(pre_conv, p["conv_w"], p["conv_b"]))
     if return_cache:
         y, hst = _mamba1_inner(cfg, p, x1, z, return_state=True)
@@ -343,6 +346,8 @@ def mamba2_forward(cfg, p, x, return_cache=False):
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     zxbcdt = torch.einsum("bsd,dc->bsc", h, p["in_proj"].to(x.dtype))
     z, pre_conv, dt = _mamba2_split(cfg, zxbcdt)
+    # the reference's constraint: under a mesh it raises (next slice)
+    pre_conv = constrain(pre_conv, ("batch", None, "act_mlp"))
     xbc = F.silu(_causal_conv(pre_conv, p["conv_w"], p["conv_b"]))
     if return_cache:
         y, hst = _mamba2_inner(cfg, p, xbc, z, dt, return_state=True)

@@ -25,6 +25,7 @@ from repro_torch.models.attention import NEG_INF, _chunked_sdpa, _mask
 from repro_torch.models.layers import (apply_rope, cache_from_spec,
                                        dense_spec, rms_norm)
 from repro_torch.models.params import ParamSpec
+from repro_torch.parallel.sharding import constrain
 
 
 def mla_spec(cfg):
@@ -82,6 +83,9 @@ def mla_attention(cfg, p, x, rope, return_latents=False):
     k_eff = torch.cat([k_nope, k_r[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     v_pad = F.pad(v, (0, qk_hd - m.v_head_dim))
+    # the reference's constraints: under a mesh they raise (next slice)
+    q_eff = constrain(q_eff, ("batch", None, "act_heads", None, None))
+    k_eff = constrain(k_eff, ("batch", None, "act_heads", None))
     o = _chunked_sdpa(q_eff, k_eff, v_pad, True, None, scale,
                       cfg.attention_chunk,
                       probs_dtype=getattr(torch, cfg.attention_probs_dtype),

@@ -18,9 +18,18 @@ Every row that a gather reads is read by at most one destination, except
 a zero pad row that stands for empty slots and dropped choices, whose
 gradient is discarded. No scatter-add, hence no atomics on the card.
 
-The reference's expert-parallel branch (under a mesh with a "model" axis)
-arrives with mesh-sharded record (ROADMAP queue 1, item 5); this package
-has no mesh context yet, and ``RecordSpec(mesh=...)`` raises.
+Under a mesh with a "model" axis ``moe_apply`` runs the reference's
+expert-parallel branch (its ``shard_map``) on local shards: tokens sharded
+over the data axes and replicated over "model"; each "model" rank runs the
+experts it holds — E / model of them (``e_offset`` its first) when the
+axis divides the expert count, else every expert's slice of ``d_ff`` —
+over a capacity computed from its own tokens, and the partial outputs are
+psummed over "model". With ``dense_layout="dp"`` the tokens are sharded
+over "model" too: all-gathered for dispatch, the outputs reduce-scattered.
+The router loss and the drop fraction are averaged over the token axes
+other than "model"; the drop fraction is the first "model" rank's (over
+its own experts), the value the reference's replicated out_spec reads.
+Inside each shard the dispatch stays the permutations above.
 """
 from __future__ import annotations
 
@@ -30,6 +39,10 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (activation, dense_spec, is_gated,
                                        mlp_apply)
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import (current_mesh, mesh_axis_sizes,
+                                           physical_spec, relayout,
+                                           spec_axes)
 
 
 def moe_spec(cfg):
@@ -102,44 +115,52 @@ def capacity(cfg, tokens: int) -> int:
                            * mo.capacity_factor)), 4)
 
 
-def moe_local(cfg, p, x_flat, cap: int):
-    """Dispatch / experts / combine over all experts of the layer.
-    Returns (out [T,d], aux, dropped fraction)."""
+def moe_local(cfg, p, x_flat, cap: int, e_offset: int = 0,
+              e_local: int = None):
+    """Dispatch / experts / combine over the experts [e_offset, e_offset +
+    e_local) that ``p["experts"]`` holds (all of the layer's by default).
+    Returns (out [T,d] — the sum over the local experts only, aux,
+    dropped fraction of the choices routed to them)."""
     mo = cfg.moe
     T, d = x_flat.shape
-    k, E = mo.top_k, mo.num_experts
+    k = mo.top_k
+    El = mo.num_experts if e_local is None else e_local
     n = T * k
     w, ids, aux = route(cfg, p["router"], x_flat)
     dev = x_flat.device
 
-    ids_f = ids.reshape(-1)                    # choice i is token i // k's
-    order = torch.sort(ids_f, stable=True).indices   # sorted place -> choice
+    # choice i is token i // k's; choices routed elsewhere sort last under
+    # the sentinel El (the reference's sort key)
+    local = ids.reshape(-1) - e_offset
+    mine = (local >= 0) & (local < El)
+    key = torch.where(mine, local, El)
+    order = torch.sort(key, stable=True).indices     # sorted place -> choice
     place = torch.empty_like(order).scatter_(
         0, order, torch.arange(n, device=dev))     # choice -> sorted place
-    # choices per expert, counted into a fixed [E] buffer (bincount's
+    # choices per expert, counted into a fixed [El + 1] buffer (bincount's
     # length depends on the ids' values, which a fake-tensor trace cannot
     # know); integer adds, so the same counts in any order
-    counts = torch.zeros(E, dtype=torch.int64, device=dev).index_add_(
-        0, ids_f, torch.ones_like(ids_f))
+    counts = torch.zeros(El + 1, dtype=torch.int64, device=dev).index_add_(
+        0, key, torch.ones_like(key))
     start = torch.cumsum(counts, 0) - counts   # an expert's first place
-    pos = place - start[ids_f]                 # a choice's slot in its expert
-    keep = pos < cap
-    dropped = (~keep).sum().float() / max(n, 1)
+    pos = place - start[key]                   # a choice's slot in its expert
+    keep = mine & (pos < cap)
+    dropped = (mine & ~keep).sum().float() / mine.sum().clamp_min(1)
 
     # slot (e, c) holds the choice at sorted place start[e] + c while c is
     # below the expert's kept count; other slots read the zero pad row n
     c = torch.arange(cap, device=dev)
-    filled = c[None, :] < torch.clamp(counts, max=cap)[:, None]
-    src = order[torch.clamp(start[:, None] + c[None, :], max=n - 1)]
+    filled = c[None, :] < torch.clamp(counts[:El], max=cap)[:, None]
+    src = order[torch.clamp(start[:El, None] + c[None, :], max=n - 1)]
     src = torch.where(filled, src, n)
     x_rep = x_flat[:, None, :].expand(T, k, d).reshape(n, d)
     x_pad = torch.cat([x_rep, x_rep.new_zeros(1, d)])
-    buf = x_pad[src.reshape(-1)].reshape(E, cap, d)
+    buf = x_pad[src.reshape(-1)].reshape(El, cap, d)
 
     out_buf = _expert_ffn(cfg, p["experts"], buf)
 
-    slot = torch.where(keep, ids_f * cap + pos, E * cap)
-    out_pad = torch.cat([out_buf.reshape(E * cap, d),
+    slot = torch.where(keep, key * cap + pos, El * cap)
+    out_pad = torch.cat([out_buf.reshape(El * cap, d),
                          out_buf.new_zeros(1, d)])
     contrib = (out_pad[slot] * w.reshape(-1).to(out_pad.dtype)[:, None]) \
         .reshape(T, k, d)
@@ -149,12 +170,73 @@ def moe_local(cfg, p, x_flat, cap: int):
     return out, aux, dropped
 
 
-def moe_apply(cfg, p, x):
-    """x [B,S,d] -> (y [B,S,d], {"moe_aux", "moe_dropped"})."""
+def _sharded_moe(cfg, p, x, have, specs):
+    """The reference's expert-parallel ``shard_map`` branch, term for term,
+    on local shards: ``x`` [B, S, d] laid out by ``have``; returns (y in
+    ``x``'s layout, aux, dropped)."""
+    mo = cfg.moe
+    mesh = current_mesh()
+    ms = mesh_axis_sizes(mesh)["model"]
     B, S, d = x.shape
-    y_flat, aux, dropped = moe_local(cfg, p, x.reshape(B * S, d),
-                                     capacity(cfg, B * S))
-    y = y_flat.reshape(B, S, d)
+    x_have = (spec_axes(have, 1)[0] or None, None)
+    nb = 1
+    for a in spec_axes(have, 1)[0]:
+        nb *= col.axis_size(a)
+    dp = cfg.dense_layout == "dp"
+    # divisibility-aware token sharding (decode with B*S==1 replicates)
+    tok_spec = physical_spec(("batch_dp3" if dp else "batch", None),
+                             (B * nb * S, d), mesh)
+    tok_axes = spec_axes(tok_spec, 2)[0]
+    xl = relayout(x.reshape(B * S, d), x_have, tok_spec)
+    t_local = xl.shape[0]
+    ep = mo.num_experts % ms == 0
+    e_local = mo.num_experts // ms if ep else mo.num_experts
+    model_in_tok = dp and "model" in tok_axes
+    t_dispatch = t_local * (ms if model_in_tok else 1)
+    cap = capacity(cfg, t_dispatch)
+    if ep:
+        want = {k: ("model", None, None) for k in p["experts"]}
+    else:
+        want = {k: (None, None, "model") for k in p["experts"]}
+        want["wo"] = (None, "model", None)        # wo is [E, f, d]: slice f
+    experts = {k: relayout(w, specs["experts"][k], want[k])
+               for k, w in p["experts"].items()}
+    pl = {"router": p["router"], "experts": experts}
+    off = col.axis_index("model") * e_local if ep else 0
+    if model_in_tok:
+        # dp layout: tokens are sharded over "model" too — gather them for
+        # dispatch, reduce-scatter the combined outputs
+        xg = col.all_gather(xl, "model", 0)
+        out, aux, drop = moe_local(cfg, pl, xg, cap, off, e_local)
+        out = col.psum_scatter(out.float(), "model", 0)
+    else:
+        out, aux, drop = moe_local(cfg, pl, xl, cap, off, e_local)
+        out = col.psum(out.float(), "model")
+    # metrics differ across token shards: average them. Over "model" the
+    # router loss is the same on every rank; the drop fraction is the
+    # first rank's, the value a replicated out_spec reads there
+    mean_axes = tuple(a for a in tok_axes if a != "model")
+    drop = col.psum(drop * (col.axis_index("model") == 0), "model")
+    if mean_axes:
+        aux = col.pmean(aux, mean_axes)
+        drop = col.pmean(drop, mean_axes)
+    y = relayout(out.to(x.dtype), tok_spec, x_have)
+    return y.reshape(B, S, d), aux, drop
+
+
+def moe_apply(cfg, p, x, have=None, specs=None):
+    """x [B,S,d] -> (y [B,S,d], {"moe_aux", "moe_dropped"}). Under a mesh
+    with a "model" axis: the expert-parallel branch on local shards, ``x``
+    laid out by ``have``, the weights by their "model" ``specs``."""
+    B, S, d = x.shape
+    mesh = current_mesh()
+    if mesh is not None and "model" in mesh_axis_sizes(mesh):
+        y, aux, dropped = _sharded_moe(cfg, p, x, have, specs)
+    else:
+        y_flat, aux, dropped = moe_local(cfg, p, x.reshape(B * S, d),
+                                         capacity(cfg, B * S))
+        y = y_flat.reshape(B, S, d)
     if "shared" in p:
-        y = y + mlp_apply(cfg, p["shared"], x)
+        y = y + mlp_apply(cfg, p["shared"], x, have,
+                          None if specs is None else specs["shared"])
     return y, {"moe_aux": aux, "moe_dropped": dropped}

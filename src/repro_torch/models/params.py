@@ -54,12 +54,16 @@ def shape_tree(tree):
     return _map_specs(lambda _, s: torch.Size(s.shape), tree)
 
 
-def init_params(tree, seed: int, default_dtype: str, device) -> dict:
+def init_params(tree, seed: int, default_dtype: str, device,
+                place=None) -> dict:
     """Materialize params on ``device``. Each leaf draws from its own
     ``torch.Generator`` seeded from (seed, blake2b of the leaf path), so the
     result is independent of tree iteration order and reproducible across
     processes. The draws are not jax.random's: to run both packages from
-    the same weights, move them with ``train.state.state_from_numpy``."""
+    the same weights, move them with ``train.state.state_from_numpy``.
+    ``place(path, leaf)``, if given, replaces each leaf as soon as it is
+    made — a process of a mesh keeps its own slice, and no more than one
+    whole leaf is alive at a time."""
     device = torch.device(device)
 
     def make(path, spec: ParamSpec):
@@ -91,4 +95,6 @@ def init_params(tree, seed: int, default_dtype: str, device) -> dict:
         # scaled in place: one f32 buffer per leaf at its peak, not two
         return x.mul_(std).to(dtype)
 
-    return _map_specs(make, tree)
+    if place is None:
+        return _map_specs(make, tree)
+    return _map_specs(lambda path, spec: place(path, make(path, spec)), tree)

@@ -23,13 +23,19 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba, mla
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (embed_tokens, embedding_spec,
-                                       empty_stack, lm_logits, mlp_apply,
-                                       mlp_spec, norm_spec,
-                                       padded_vocab_size, rms_norm,
-                                       rope_tables, stack_cache_spec,
-                                       unembed_spec, write_layer)
-from repro_torch.models.params import stack_spec
+from repro_torch.models.layers import (batch_axis, embed_tokens,
+                                       embedding_spec, empty_stack,
+                                       lm_logits, mlp_apply, mlp_spec,
+                                       norm_spec, padded_vocab_size,
+                                       rms_norm, rope_tables,
+                                       stack_cache_spec, unembed_spec,
+                                       write_layer)
+from repro_torch.models.params import _map_specs, stack_spec
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import (constrain, constrain_spec,
+                                           current_mesh, model_spec,
+                                           physical_spec, relayout,
+                                           spec_axes)
 
 
 def padded_vocab(cfg) -> int:
@@ -61,11 +67,11 @@ def moe_block_spec(cfg):
     }
 
 
-def _attention(cfg, p, x, window, rope):
+def _attention(cfg, p, x, window, rope, have=None, specs=None):
     if cfg.mla:
         return mla.mla_attention(cfg, p, x, rope)
     return attn.self_attention(cfg, p, x, causal=True, window=window,
-                               rope=rope)
+                               rope=rope, have=have, specs=specs)
 
 
 def rope_tables_for(cfg, S: int, device, start: int = 0):
@@ -77,19 +83,35 @@ def rope_tables_for(cfg, S: int, device, start: int = 0):
     return rope_tables(S, dim, cfg.rope_theta, device, start)
 
 
-def dense_block(cfg, p, x, window=None, rope=None):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _attention(cfg, p["attn"], h, window, rope)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(cfg, p["mlp"], h)
+def res_axes(cfg):
+    """Residual-stream logical axes (the reference's): with
+    ``cfg.seq_shard`` the sequence dim over "model", with
+    ``dense_layout="dp"`` the batch over every mesh axis."""
+    return (batch_axis(cfg), "seq_mp" if cfg.seq_shard else None, None)
 
 
-def moe_block(cfg, p, x, window=None, rope=None):
+def dense_block(cfg, p, x, window=None, rope=None, have=None, specs=None):
+    """One attention + MLP block. Under a mesh ``x`` is the local residual
+    laid out by ``have``, ``p`` a layer's gathered weights and ``specs``
+    their "model" specs."""
+    specs = specs or {}
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _attention(cfg, p["attn"], h, window, rope)
+    x = x + _attention(cfg, p["attn"], h, window, rope, have,
+                       specs.get("attn"))
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y, metrics = moe_mod.moe_apply(cfg, p["moe"], h)
-    return x + y, metrics
+    x = x + mlp_apply(cfg, p["mlp"], h, have, specs.get("mlp"))
+    return constrain(x, res_axes(cfg), have)
+
+
+def moe_block(cfg, p, x, window=None, rope=None, have=None, specs=None):
+    specs = specs or {}
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + _attention(cfg, p["attn"], h, window, rope, have,
+                       specs.get("attn"))
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, metrics = moe_mod.moe_apply(cfg, p["moe"], h, have, specs.get("moe"))
+    x = x + y
+    return constrain(x, res_axes(cfg), have), metrics
 
 
 def _layer(tree, i: int):
@@ -149,9 +171,86 @@ def _embed_inputs(cfg, params, tokens, embeds):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
+# --------------------------------------------------------- under a mesh --
+
+def mesh_param_specs(cfg, mesh=None) -> dict:
+    """Each parameter's spec on ``mesh`` (the installed one by default),
+    resolved from its logical axes at its global shape — the specs
+    ``launch.specs.state_shardings`` lays the state out by."""
+    mesh = mesh or current_mesh()
+    return _map_specs(lambda _, sp: tuple(physical_spec(sp.axes, sp.shape,
+                                                        mesh)),
+                      lm_param_spec(cfg))
+
+
+def use_params(tree, specs, i=None):
+    """Layer ``i`` of a stacked tree of local parameter shards (the whole
+    tree when ``i`` is None), each FSDP-gathered over every axis but
+    "model" (all-gather forward, reduce-scatter backward). Returns (the
+    gathered tree, its "model" specs)."""
+    if isinstance(tree, dict):
+        pairs = {k: use_params(tree[k], specs[k], i) for k in tree}
+        return ({k: v[0] for k, v in pairs.items()},
+                {k: v[1] for k, v in pairs.items()})
+    if i is not None:
+        tree, specs = tree[i], specs[1:]
+    keep = model_spec(specs)
+    return relayout(tree, specs, keep), keep
+
+
+def check_sharded(cfg, embeds=None):
+    """Raise for what runs sharded only in the next slice of the port."""
+    if cfg.family not in ("dense", "moe") or cfg.mla or cfg.seq_shard \
+            or embeds is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: sharded compute covers the dense and MoE "
+            f"families with GQA attention; MLA, SSM, hybrid, encoder-"
+            f"decoder, vision prefixes and sequence parallelism run under "
+            f"a mesh in the next slice of the port (ROADMAP queue 1, "
+            f"item 3)")
+
+
+def _sharded_forward(cfg, params, specs, tokens, tok_have):
+    """``lm_forward`` on local shards: returns (hidden, metrics, its
+    spec)."""
+    x, xs = embed_tokens(cfg, params["embed"]["table"], tokens,
+                         getattr(torch, cfg.dtype), have=tok_have,
+                         table_spec=specs["embed"]["table"])
+    x, xs = constrain_spec(x, res_axes(cfg), have=xs)
+    rope = rope_tables_for(cfg, x.shape[1], x.device)
+    window = cfg.sliding_window
+    metrics = {}
+    aux, drop = [], []
+    for name in ("dense_layers", "layers"):
+        if name not in params:
+            continue
+        moe = cfg.family == "moe" and name == "layers"
+        for i in range(_depth(params[name])):
+            lyr, lsp = use_params(params[name], specs[name], i)
+            if moe:
+                x, m = moe_block(cfg, lyr, x, window, rope, xs, lsp)
+                aux.append(m["moe_aux"])
+                drop.append(m["moe_dropped"])
+            else:
+                x = dense_block(cfg, lyr, x, window, rope, xs, lsp)
+    if aux:
+        metrics = {"moe_aux": torch.stack(aux).mean(),
+                   "moe_dropped": torch.stack(drop).mean()}
+    ln_f, _ = use_params(params["ln_f"], specs["ln_f"])
+    return rms_norm(x, ln_f, cfg.norm_eps), metrics, xs
+
+
 def lm_forward(cfg, params, tokens=None, embeds=None):
     """Returns (final hidden states [B, S_total, d], metrics)."""
+    if current_mesh() is not None:
+        check_sharded(cfg, embeds)
+        tokens, ts = constrain_spec(tokens, (batch_axis(cfg), None),
+                                    have=(None, None))
+        hidden, metrics, _ = _sharded_forward(
+            cfg, params, mesh_param_specs(cfg), tokens, ts)
+        return hidden, metrics
     x = _embed_inputs(cfg, params, tokens, embeds)
+    x = constrain(x, res_axes(cfg))
     rope = rope_tables_for(cfg, x.shape[1], x.device)
     window = cfg.sliding_window
     fam = cfg.family
@@ -204,9 +303,26 @@ def _loss_chunk_size(cfg, S):
     return S
 
 
-def ce_loss(cfg, params, hidden, labels, mask=None):
+def _vocab_parallel_lse_gold(logits, y, vax):
+    """lse and the gold logit of vocab-sharded ``logits``: the max and the
+    sum of exponentials psummed over ``vax`` (the max a stop-gradient
+    shift), the gold logit from the one shard that holds the label."""
+    m = col.pmax(logits.amax(dim=-1), vax)
+    s = col.psum(torch.exp(logits - m[..., None]).sum(dim=-1), vax)
+    V = logits.shape[-1]
+    local = y - col.axis_index(vax[0]) * V
+    mine = (local >= 0) & (local < V)
+    gold = logits.gather(-1, local.clamp(0, V - 1)[..., None])[..., 0]
+    return m + torch.log(s), col.psum(gold * mine, vax)
+
+
+def ce_loss(cfg, params, hidden, labels, mask=None, have=None, specs=None):
     """Chunked cross-entropy. hidden [B,T,d] aligned with labels [B,T].
-    Returns (mean nll, {"ce", "z_loss"}), all f32."""
+    Returns (mean nll, {"ce", "z_loss"}), all f32. Under a mesh ``hidden``
+    and ``labels`` are local, laid out by ``have`` (batch), ``params`` the
+    local shards laid out by ``specs``: the logits are vocab-parallel and
+    the sums are psummed over the batch axes, so the loss is the global
+    batch's mean on every rank."""
     pv = padded_vocab(cfg)
     B, T, _ = hidden.shape
     if mask is None:
@@ -216,30 +332,55 @@ def ce_loss(cfg, params, hidden, labels, mask=None):
     cnt = hidden.new_zeros((), dtype=torch.float32)
     zsq = hidden.new_zeros((), dtype=torch.float32)
     for s in range(0, T, C):
-        logits = lm_logits(cfg, params, hidden[:, s:s + C], pv).float()
-        lse = torch.logsumexp(logits, dim=-1)
         y = labels[:, s:s + C].long()
-        gold = logits.gather(-1, y[..., None])[..., 0]
+        if have is None:
+            logits = lm_logits(cfg, params, hidden[:, s:s + C], pv).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, y[..., None])[..., 0]
+        else:
+            logits, ls = lm_logits(cfg, params, hidden[:, s:s + C], pv,
+                                   have=have, specs=specs)
+            logits, vax = logits.float(), spec_axes(ls, 3)[2]
+            if vax:
+                lse, gold = _vocab_parallel_lse_gold(logits, y, vax)
+            else:
+                lse = torch.logsumexp(logits, dim=-1)
+                gold = logits.gather(-1, y[..., None])[..., 0]
         m_c = mask[:, s:s + C]
         tot = tot + ((lse - gold) * m_c).sum()
         cnt = cnt + m_c.sum()
         zsq = zsq + (lse.square() * m_c).sum()
+    if have is not None:
+        bax = spec_axes(have, 3)[0]
+        tot, cnt, zsq = (col.psum(t, bax) for t in (tot, cnt, zsq))
     cnt = torch.clamp_min(cnt, 1.0)
     return tot / cnt, {"ce": tot / cnt, "z_loss": zsq / cnt}
 
 
 def lm_loss(cfg, params, batch):
     """Next-token loss for decoder-only families. batch: tokens [B,S] and,
-    for vlm, embeds [B,F,d] prefix."""
+    for vlm, embeds [B,F,d] prefix. Under a mesh every rank passes the
+    global batch and its local parameter shards; each computes on its own
+    rows, and the loss is the global batch's on every rank."""
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
-    hidden, metrics = lm_forward(cfg, params, tokens, embeds)
-    if embeds is not None:
-        F = embeds.shape[1]
-        h = hidden[:, F - 1: F + tokens.shape[1] - 1]
-        loss, lm = ce_loss(cfg, params, h, tokens)
+    if current_mesh() is not None:
+        check_sharded(cfg, embeds)
+        specs = mesh_param_specs(cfg)
+        tokens, ts = constrain_spec(tokens, (batch_axis(cfg), None),
+                                    have=(None, None))
+        hidden, metrics, hs = _sharded_forward(cfg, params, specs, tokens,
+                                               ts)
+        loss, lm = ce_loss(cfg, params, hidden[:, :-1], tokens[:, 1:],
+                           have=hs, specs=specs)
     else:
-        loss, lm = ce_loss(cfg, params, hidden[:, :-1], tokens[:, 1:])
+        hidden, metrics = lm_forward(cfg, params, tokens, embeds)
+        if embeds is not None:
+            F = embeds.shape[1]
+            h = hidden[:, F - 1: F + tokens.shape[1] - 1]
+            loss, lm = ce_loss(cfg, params, h, tokens)
+        else:
+            loss, lm = ce_loss(cfg, params, hidden[:, :-1], tokens[:, 1:])
     metrics.update(lm)
     if cfg.moe is not None and cfg.moe.router_aux_loss \
             and "moe_aux" in metrics:

@@ -21,8 +21,17 @@ mesh order has no torch form and raises.
 
 ``place`` is the counterpart of ``jax.make_array_from_callback``: each rank
 cuts its own slice of a tensor it holds whole and wraps it as a ``DTensor``
-without any collective (gloo has none for CUDA tensors, and ranks that
-share one card are gloo ranks).
+without any collective. A DTensor is only the container of a placed state
+leaf at a step's boundary; sharded model compute runs on the local tensors
+(``to_local``), explicitly, as the reference's ``shard_map`` does.
+
+``constrain`` is the counterpart of ``with_sharding_constraint`` inside that
+compute: the caller says how the local tensor it produced is laid out
+(``have``, a spec), and ``constrain`` moves it to the layout the rules give
+the logical axes (``relayout``: gathers and slices through
+``parallel/collectives.py``). The MLA, SSM, hybrid and encoder-decoder
+families do not declare their layouts yet; their constrain calls raise
+under a mesh (ROADMAP queue 1, item 3).
 
 Physical axes:
   "pod"   — outermost, across pods (multi-pod mesh only)
@@ -278,6 +287,15 @@ def place(x: torch.Tensor, mesh, spec):
                               stride=_contiguous_stride(x.shape))
 
 
+def place_local(local: torch.Tensor, like):
+    """``local`` (this rank's shard) as a DTensor with the mesh, placements
+    and global shape of the DTensor ``like``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=_contiguous_stride(like.shape))
+
+
 class MeshSharding:
     """A spec on a mesh — what a jax ``NamedSharding`` is to the reference
     package. ``placements`` is its torch form; ``place(x, s.mesh, s.spec)``
@@ -307,13 +325,80 @@ def param_sharding(logical, shape, mesh=None) -> Optional[tuple]:
     return placements(physical_spec(logical, shape, mesh), mesh)
 
 
-def constrain(x, logical: Sequence[Optional[str]]):
-    """Identity with no mesh installed. Under a mesh this would constrain an
-    activation's layout inside sharded model compute, which this package
-    does not run yet: it raises instead of computing something else."""
-    if _CTX.mesh is None:
-        return x
-    raise NotImplementedError(
-        "constrain under a mesh needs sharded model compute, which the "
-        "torch package does not run yet (it records and restores sharded "
-        "state; ROADMAP queue 1)")
+def spec_axes(spec, ndim: int) -> list:
+    """Per tensor dim, the tuple of mesh axes that shard it (major
+    first)."""
+    ent = list(tuple(spec or ())) + [None] * ndim
+    return [_entry_axes(e) for e in ent[:ndim]]
+
+
+def global_shape(local_shape, spec, mesh=None) -> tuple:
+    """The global shape of a local tensor laid out by ``spec``."""
+    sizes = mesh_axis_sizes(mesh or _CTX.mesh)
+    return tuple(int(n) * _mesh_axis_size(sizes, a) for n, a in
+                 zip(local_shape, spec_axes(spec, len(local_shape))))
+
+
+def relayout(x, have, want):
+    """The local tensor ``x``, laid out by spec ``have`` on the installed
+    mesh, moved to spec ``want``: per dim, the axes ``have`` shards it on
+    beyond the longest prefix it shares with ``want`` are gathered (minor
+    axis first), then, once every dim is gathered, each dim is sliced by
+    ``want``'s remaining axes (major first) — an all-gather transposes to
+    a reduce-scatter, a slice to its zero-padded cotangent. The identity
+    where the two agree."""
+    from repro_torch.parallel import collectives as col
+    hs, ws = spec_axes(have, x.ndim), spec_axes(want, x.ndim)
+    keep = []
+    for h, w in zip(hs, ws):
+        k = 0
+        while k < min(len(h), len(w)) and h[k] == w[k]:
+            k += 1
+        keep.append(k)
+    # every gather before any slice: a slice along one dim makes the ranks
+    # of its axis hold different blocks of the others
+    for d, (h, k) in enumerate(zip(hs, keep)):
+        for a in reversed(h[k:]):
+            x = col.all_gather(x, a, d)
+    for d, (w, k) in enumerate(zip(ws, keep)):
+        for a in w[k:]:
+            n = col.axis_size(a)
+            size = x.shape[d] // n
+            x = x.narrow(d, col.axis_index(a) * size, size)
+    return x
+
+
+def constrain(x, logical: Sequence[Optional[str]], have=None):
+    """``with_sharding_constraint``: the identity with no mesh installed.
+    Under a mesh, ``x`` is a local tensor laid out by spec ``have`` (what
+    the producing code left; ``None`` entries replicate); it is moved to
+    ``physical_spec(logical, global shape)`` through ``relayout``. A call
+    that declares no ``have`` comes from a family whose sharded compute is
+    not ported yet, and raises."""
+    return constrain_spec(x, logical, have)[0]
+
+
+def constrain_spec(x, logical: Sequence[Optional[str]], have=None):
+    """``constrain`` that also returns the spec the result is laid out by
+    (None with no mesh)."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x, None
+    if have is None:
+        raise NotImplementedError(
+            "constrain under a mesh in a family whose sharded compute is "
+            "not ported yet (MLA, SSM, hybrid, encoder-decoder, serving "
+            "caches): the next slice of the port (ROADMAP queue 1, item 3)")
+    want = physical_spec(logical, global_shape(x.shape, have, mesh), mesh)
+    want = tuple(want) + (None,) * (x.ndim - len(want))
+    return relayout(x, have, want), want
+
+
+MODEL_AXIS = "model"
+
+
+def model_spec(spec) -> tuple:
+    """``spec`` with every axis but "model" dropped: the layout a weight is
+    used in after its FSDP (ZeRO-3) all-gather over the other axes."""
+    return tuple(MODEL_AXIS if MODEL_AXIS in _entry_axes(e) else None
+                 for e in tuple(spec))

@@ -3,7 +3,9 @@ tensors and never writes one in place, so checkpoint handles and logged
 values taken from an earlier state keep its bytes (checkpoint/delta.py).
 
 Moments are stored in ``moment_dtype`` (fp32 default) but all arithmetic is
-fp32, as in the reference package.
+fp32, as in the reference package. The update is elementwise, so the
+sharded step runs it on local shards; only the global norm needs the mesh
+(``sharded_global_norm``).
 """
 from __future__ import annotations
 
@@ -70,7 +72,30 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm):
-    gn = global_norm(grads)
+def sharded_global_norm(grads, specs):
+    """The global norm of local gradient shards laid out by ``specs`` (one
+    spec per leaf, in ``tree_leaves`` order) on the installed mesh: each
+    leaf's local sum of squares is psummed over the axes it is sharded on
+    (and not over those it is replicated on), so every element counts
+    once. Leaves are summed in groups of equal sharded axes."""
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import spec_axes
+
+    groups: dict = {}
+    for g, spec in zip(tree_leaves(grads), specs):
+        key = tuple(sorted({a for ax in spec_axes(spec, g.ndim)
+                            for a in ax}))
+        groups.setdefault(key, []).append(g.float().square().sum())
+    total = [col.psum(torch.stack(v).sum(), key)
+             for key, v in sorted(groups.items())]
+    return torch.sqrt(torch.stack(total).sum())
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm, gn=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and the
+    norm (``gn`` if the caller computed it, as the sharded step does)."""
+    if gn is None:
+        gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn

@@ -4,18 +4,35 @@ The step is functional, as in the reference package: it returns a NEW
 TrainState and never writes the old one in place, so a checkpoint whose
 deferred gather still holds the old tensors reads the submitted bytes.
 Entry points run on the card unless the caller asks for the CPU.
+
+With a ``mesh`` (a ("data", "model") ``DeviceMesh`` over a fleet of
+processes) the step is sharded, as the reference's jitted step is under
+GSPMD: the state's leaves are DTensors laid out by
+``launch.specs.state_shardings`` (parameters on "embed" over "data",
+heads / kv_heads / mlp / vocab / expert over "model"), and the step runs on
+their local tensors — explicit SPMD (``models/`` under ``use_mesh``) with
+the collectives of ``parallel/collectives.py``. It backpropagates the
+global batch's loss divided by the number of ranks (cotangents are partial
+sums), psums each leaf's gradient over the axes the leaf is replicated on,
+clips by the global norm that counts each element once, and runs AdamW on
+the local shards. ``init_state`` never holds the whole state in one
+process: each leaf is made whole, sliced and freed in turn, so the state
+is bit-identical to ``place`` of the unsharded one.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.models import build_model
 from repro_torch.train.optimizer import (AdamWState, adamw,
-                                         clip_by_global_norm, global_norm)
+                                         clip_by_global_norm, global_norm,
+                                         sharded_global_norm)
 from repro_torch.train.schedule import warmup_cosine
 from repro_torch.train.state import TrainState
-from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
 
 def resolve_device(device) -> torch.device:
@@ -45,16 +62,21 @@ def build_loss_fn(cfg):
     return loss_fn
 
 
-def build_train_step(cfg, *, device="cuda", peak_lr=3e-4, warmup=100,
-                     total_steps=10000, grad_clip=1.0, weight_decay=0.1):
+def build_train_step(cfg, *, device="cuda", mesh=None, peak_lr=3e-4,
+                     warmup=100, total_steps=10000, grad_clip=1.0,
+                     weight_decay=0.1):
     """Returns (init_state(seed) -> TrainState, train_step(state, batch) ->
     (state, metrics)), both on ``device`` (default the card). ``batch``
-    may hold host numpy arrays; they are moved to the device."""
+    may hold host numpy arrays; they are moved to the device. With
+    ``mesh``, the sharded step (every rank passes the global batch)."""
     device = resolve_device(device)
     model = build_model(cfg)
     sched = warmup_cosine(peak_lr, warmup, total_steps)
     opt_init, opt_update = adamw(sched, weight_decay=weight_decay,
                                  moment_dtype=cfg.moment_dtype)
+    if mesh is not None:
+        return _sharded_step(cfg, model, device, mesh, sched, opt_update,
+                             grad_clip)
 
     def init_state(seed: int = 0) -> TrainState:
         params = model.init(seed, device)
@@ -89,6 +111,87 @@ def build_train_step(cfg, *, device="cuda", peak_lr=3e-4, warmup=100,
         metrics["lr"] = sched(state.step)
         new_state = TrainState(params=new_params, mu=opt.mu, nu=opt.nu,
                                step=state.step + 1, rng=state.rng)
+        return new_state, metrics
+
+    return init_state, train_step
+
+
+def _sharded_step(cfg, model, device, mesh, sched, opt_update, grad_clip):
+    """(init_state, train_step) on ``mesh``: see the module docstring."""
+    from repro_torch.models.transformer import (check_sharded,
+                                                mesh_param_specs)
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import (mesh_axis_sizes, place,
+                                               place_local, spec_axes,
+                                               use_mesh)
+
+    check_sharded(cfg)
+    specs = mesh_param_specs(cfg, mesh)
+    is_spec = lambda x: isinstance(x, tuple)  # noqa: E731
+    spec_leaves = tree_flatten(specs, is_leaf=is_spec)[0]
+    axes = tuple(mesh_axis_sizes(mesh))
+    n_ranks = math.prod(mesh_axis_sizes(mesh).values())
+    mdt = getattr(torch, cfg.moment_dtype)
+
+    def spec_at(path):
+        t = specs
+        for k in path:
+            t = t[k]
+        return t
+
+    def init_state(seed: int = 0) -> TrainState:
+        params = model.init(seed, device, place=lambda path, x: place(
+            x, mesh, spec_at(path)))
+
+        def zeros(x):
+            return place_local(torch.zeros(x.to_local().shape, dtype=mdt,
+                                           device=device), x)
+        gen = torch.Generator().manual_seed(int(seed) + 1)
+        rng = torch.randint(0, 2 ** 32, (2,), generator=gen,
+                            dtype=torch.int64).to(torch.uint32)
+        return TrainState(
+            params=params, mu=tree_map(zeros, params),
+            nu=tree_map(zeros, params),
+            step=place(torch.zeros((), dtype=torch.int32, device=device),
+                       mesh, ()),
+            rng=place(rng.to(device), mesh, ()))
+
+    def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        batch = batch_to_device(batch, device)
+        leaves, treedef = tree_flatten(state.params)
+        local = [x.to_local().detach().requires_grad_(True)
+                 for x in leaves]
+        step = state.step.to_local()
+        with use_mesh(mesh):
+            loss, metrics = model.loss(tree_unflatten(treedef, local),
+                                       batch)
+            raw = torch.autograd.grad(loss / n_ranks, local,
+                                      allow_unused=True)
+            with torch.no_grad():
+                grads = []
+                for p, g, spec in zip(local, raw, spec_leaves):
+                    g = torch.zeros_like(p) if g is None else g
+                    used = {a for ax in spec_axes(spec, p.ndim) for a in ax}
+                    rep = tuple(a for a in axes if a not in used)
+                    grads.append(col.psum(g, rep) if rep else g)
+                del raw
+                gnorm = sharded_global_norm(grads, spec_leaves)
+            grads = tree_unflatten(treedef, grads)
+            if grad_clip:
+                grads, gnorm = clip_by_global_norm(grads, grad_clip, gnorm)
+            to_local = lambda t: tree_map(  # noqa: E731
+                lambda x: x.to_local(), t)
+            new_params, opt = opt_update(
+                grads, AdamWState(to_local(state.mu), to_local(state.nu)),
+                tree_unflatten(treedef, [p.detach() for p in local]), step)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = gnorm
+        metrics["lr"] = sched(step)
+        new_state = TrainState(
+            params=tree_map(place_local, new_params, state.params),
+            mu=tree_map(place_local, opt.mu, state.mu),
+            nu=tree_map(place_local, opt.nu, state.nu),
+            step=place_local(step + 1, state.step), rng=state.rng)
         return new_state, metrics
 
     return init_state, train_step

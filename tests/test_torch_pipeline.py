@@ -80,15 +80,125 @@ def test_bubble_fraction_matches_reference(S, M):
     assert port.bubble_fraction(4, 8) == 3 / 11
 
 
+class _DuckMesh:
+    def __init__(self, **sizes):
+        self.shape = sizes
+
+
 def test_stage_scan_under_a_mesh_raises():
-    """The stage buffer's constraint needs sharded model compute."""
+    """A "stage" axis must hold one stage per rank: 8 stages on a 4-rank
+    axis raise before any collective. (A replicated "stage" rule, the
+    default, leaves the buffer whole: the plain scan.)"""
     from repro_torch.parallel import sharding
 
-    params, x = _inputs(2, 2)
-    with sharding.use_mesh(object(), rules={"stage": [("stage",), ()]}):
-        with pytest.raises(NotImplementedError, match="sharded model"):
+    params, x = _inputs(8, 8)
+    with sharding.use_mesh(_DuckMesh(stage=4),
+                           rules={"stage": [("stage",), ()]}):
+        with pytest.raises(ValueError, match="one mesh axis of 8 ranks"):
             port.stage_scan(_stage_torch, _tparams(params),
-                            torch.from_numpy(x), microbatches=2)
+                            torch.from_numpy(x), microbatches=8)
+    params, x = _inputs(4, 4)
+    with sharding.use_mesh(_DuckMesh(stage=4)):
+        got = port.stage_scan(_stage_torch, _tparams(params),
+                              torch.from_numpy(x), microbatches=4)
+    want = port.stage_scan(_stage_torch, _tparams(params),
+                           torch.from_numpy(x), microbatches=4)
+    assert torch.equal(got, want)
+
+
+STAGE_REF = """
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.parallel import use_mesh
+from repro.parallel.pipeline import stage_scan
+
+inp, out = sys.argv[1:3]
+z = np.load(inp)
+mesh = Mesh(np.array(jax.devices()).reshape(4, 2), ("stage", "data"))
+rules = {"stage": [("stage",), ()], "batch": [("data",), ()]}
+sh = NamedSharding(mesh, P("stage"))
+params = {k: jax.device_put(jnp.asarray(z[k]), sh) for k in ("w", "b")}
+
+
+def stage(p, h):
+    return jnp.tanh(h @ p["w"] + p["b"])
+
+
+with mesh, use_mesh(mesh, rules=rules):
+    pipe = jax.jit(lambda p, x: stage_scan(stage, p, x, microbatches=8))(
+        params, jnp.asarray(z["x"]))
+np.save(out, np.asarray(pipe))
+"""
+
+STAGE_PORT = """
+import numpy as np
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.pipeline import stage_scan
+from repro_torch.parallel.sharding import use_mesh
+
+
+def stage(p, h):
+    return torch.tanh(h @ p["w"] + p["b"])
+
+
+def main(rank, world, args):
+    z = np.load(args[0])
+    mesh = DeviceMesh("cpu", torch.arange(4), mesh_dim_names=("stage",))
+    params = {k: torch.from_numpy(z[k]).requires_grad_(True)
+              for k in ("w", "b")}
+    x = torch.from_numpy(z["x"]).requires_grad_(True)
+    probe = torch.from_numpy(z["probe"])
+    with use_mesh(mesh, rules={"stage": [("stage",), ()]}):
+        col.reset_counts()
+        out = stage_scan(stage, params, x, microbatches=8)
+        calls = col.counts(by_op=True)["stage"]
+        # the replicated output's loss over the 4 ranks (partial
+        # cotangents), gradients summed over the stage axis
+        wrt = [params["w"], params["b"], x]
+        grads = torch.autograd.grad((out * probe).sum() / 4, wrt,
+                                    allow_unused=True)   # x: stage 0's
+        grads = [col.psum(torch.zeros_like(w) if g is None else g, "stage")
+                 for g, w in zip(grads, wrt)]
+    # the plain scan on the full buffer, one process
+    want = stage_scan(stage, params, x, microbatches=8)
+    wgrads = torch.autograd.grad((want * probe).sum(),
+                                 [params["w"], params["b"], x])
+    assert calls["ppermute"]["calls"] == 8 + 4 - 1, calls
+    np.testing.assert_allclose(out.detach().numpy(), want.detach().numpy(),
+                               atol=1e-6)
+    for g, w in zip(grads, wgrads):
+        np.testing.assert_allclose(g.numpy(), w.numpy(),
+                                   atol=1e-5 * float(w.abs().max()))
+    if rank == 0:
+        np.save(args[1], out.detach().numpy())
+"""
+
+
+def test_stage_scan_on_a_stage_fleet_matches_the_reference(tmp_path):
+    """The reference's 8-device test (4 stages x 2 data on a ("stage",
+    "data") mesh, 8 microbatches, d 16) against the port's buffer sharded
+    over a real 4-process "stage" axis: one ``ppermute`` per tick, within
+    1e-5 of the reference and of the one-process scan (gradients too,
+    summed over the axis)."""
+    from torch_fleet import ref_subprocess, run_fleet
+
+    rng = np.random.default_rng(0)
+    inp = str(tmp_path / "in.npz")
+    np.savez(inp, w=(rng.standard_normal((4, D, D)) * 0.1).astype(
+        np.float32), b=(rng.standard_normal((4, D)) * 0.1).astype(
+        np.float32), x=rng.standard_normal((16, D)).astype(np.float32),
+        probe=rng.standard_normal((16, D)).astype(np.float32))
+    ref_out, port_out = str(tmp_path / "ref.npy"), str(tmp_path / "port.npy")
+    r = ref_subprocess(STAGE_REF, 8, inp, ref_out)
+    assert r.returncode == 0, r.stderr[-3000:]
+    res = run_fleet(STAGE_PORT, 4, tmp_path, inp, port_out)
+    assert all(rc == 0 for rc, _ in res), [t[-2000:] for _, t in res]
+    np.testing.assert_allclose(np.load(port_out), np.load(ref_out),
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("stages", [2, 4])

@@ -91,13 +91,187 @@ def test_placements_follow_mesh_order():
 
 
 def test_constrain_is_identity_without_mesh_and_raises_under_one():
+    """Under a mesh a call that declares no layout (``have``) comes from a
+    family whose sharded compute is the next slice's: it raises; one that
+    does is moved (``test_constrain_sites_hold_the_reference_shards``)."""
     x = torch.ones(4, 4)
     assert tsh.constrain(x, ("batch", None)) is x
+    assert tsh.constrain_spec(x, ("batch", None)) == (x, None)
     with tsh.use_mesh(DuckMesh((2, 2), ("data", "model"))):
         assert tsh.current_mesh() is not None
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="next slice"):
             tsh.constrain(x, ("batch", None))
+        # a layout that already is the constrained one needs no collective
+        y, spec = tsh.constrain_spec(x, ("batch", "mlp"),
+                                     have=("data", "model"))
+        assert y is x and spec == ("data", "model")
+        assert tsh.global_shape((4, 4), ("data", None)) == (8, 4)
     assert tsh.current_mesh() is None
+
+
+@pytest.mark.parametrize("family", ["mla", "ssm", "hybrid", "encdec"])
+def test_next_slice_families_raise_under_a_mesh(family):
+    """The MLA, SSM, hybrid and encoder-decoder families do not run sharded
+    yet: their loss under a mesh raises, naming the next slice."""
+    from repro_torch.data import synthetic_batch
+    arch = {"mla": "deepseek-v3-671b", "ssm": "falcon-mamba-7b",
+            "hybrid": "zamba2-7b", "encdec": "seamless-m4t-large-v2"}[family]
+    cfg = C.get_smoke(arch)
+    model = build_model(cfg)
+    params = model.init(0, "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             synthetic_batch(cfg, 2, 16, 0, 0).items()}
+    with tsh.use_mesh(DuckMesh((2, 2), ("data", "model"))):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            model.loss(params, batch)
+
+
+def test_serving_raises_under_a_mesh():
+    """Prefill and decode under a mesh are the next slice's."""
+    cfg = C.get_smoke("florbench-100m")
+    model = build_model(cfg)
+    params = model.init(0, "cpu")
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    with tsh.use_mesh(DuckMesh((2, 2), ("data", "model"))):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            model.prefill(params, {"tokens": tokens}, 16)
+        with pytest.raises(NotImplementedError, match="next slice"):
+            model.decode(params, model.init_cache(2, 16, "cpu"),
+                         tokens[:, :1], 8)
+
+
+SITES = """
+import json
+from torch.distributed.device_mesh import DeviceMesh
+import repro_torch.configs as C
+from repro.parallel import sharding as jsh
+from repro_torch.data import synthetic_batch
+from repro_torch.launch.specs import state_shardings
+from repro_torch.models import attention, layers, transformer
+from repro_torch.models.api import build_model
+from repro_torch.parallel import sharding as tsh
+from repro_torch.train.step import build_train_step
+from repro_torch.utils.pytree import tree_map
+
+RECORD = []
+
+
+def recording(x, logical, have=None):
+    y, spec = tsh.constrain_spec(x, logical, have)
+    RECORD.append((tuple(logical), y.detach().clone(), spec))
+    return y, spec
+
+
+for mod in (attention, layers, transformer):
+    mod.constrain = lambda x, logical, have=None: recording(x, logical,
+                                                            have)[0]
+    mod.constrain_spec = recording
+
+
+class Duck:
+    def __init__(self, sizes):
+        self.shape = sizes
+
+
+def main(rank, world, args):
+    arch, d, m, over = args[0], int(args[1]), int(args[2]), json.loads(args[3])
+    cfg = C.get_smoke(arch).replace(dtype="float32", **over)
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(d, m),
+                      mesh_dim_names=("data", "model"))
+    init, _ = build_train_step(cfg, device="cpu")
+    state = init(0)
+    sh = state_shardings(cfg, mesh, state)
+    local = tree_map(lambda x, s: tsh.place(x, mesh, s.spec).to_local(),
+                     state.params, sh.params)
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic_batch(cfg, 8, 16, 0, 0).items()}
+    model = build_model(cfg)
+    model.loss(state.params, batch)
+    full = list(RECORD)
+    RECORD.clear()
+    with tsh.use_mesh(mesh):
+        model.loss(local, batch)
+    # the sharded path also constrains the global tokens to its rows
+    sharded = [r for r in RECORD if r[1].ndim > 2]
+    assert len(full) == len(sharded) > 4, (len(full), len(sharded))
+    sizes = {"data": d, "model": m}
+    for (lg, x, _), (lg2, y, spec) in zip(full, sharded):
+        assert lg == lg2, (lg, lg2)
+        want = tuple(jsh.physical_spec(lg, x.shape, Duck(sizes)))
+        want += (None,) * (x.ndim - len(want))
+        assert tsh.spec_entries(spec) == tsh.spec_entries(want), \
+            (lg, spec, want)
+        box = tsh.local_box(x.shape, mesh, tsh.placements(spec, mesh))
+        part = x[tuple(slice(lo, hi) for lo, hi in box)]
+        assert y.shape == part.shape, (lg, y.shape, part.shape)
+        torch.testing.assert_close(y, part, rtol=0,
+                                   atol=1e-5 * float(x.abs().max()))
+    print("SITES", len(full))
+"""
+
+
+@pytest.mark.parametrize("arch,mesh,over", [
+    ("florbench-100m", (2, 2), {}),
+    ("granite-3-2b", (1, 4), {}),
+    # MoE on (1, 4): each expert's capacity is the unsharded one (tokens
+    # replicated over "model", or all-gathered there with "dp"), so the
+    # same choices drop and the activations stay comparable
+    ("mixtral-8x7b", (1, 4), {}),
+    ("mixtral-8x7b", (1, 4), {"dense_layout": "dp"}),
+], ids=["florbench-2x2", "granite-1x4", "mixtral-1x4", "mixtral-dp-1x4"])
+def test_constrain_sites_hold_the_reference_shards(tmp_path, arch, mesh,
+                                                   over):
+    """At every constrain site of the dense / MoE loss (embedding, residual,
+    q, k, MLP hidden, block outputs, logits), in a fleet of CPU processes:
+    the spec the port resolves equals the reference's ``physical_spec`` at
+    the activation's global shape, and the local tensor equals that shard
+    of the same site's activation in the unsharded loss (f32)."""
+    res = run_fleet(SITES, mesh[0] * mesh[1], tmp_path, arch, mesh[0],
+                    mesh[1], json.dumps(over))
+    assert all(rc == 0 for rc, _ in res), [t[-2000:] for _, t in res]
+    assert "SITES" in res[0][1]
+
+
+def test_relayout_moves_shards_through_collectives(tmp_path):
+    """``relayout`` on a (2, 2) fleet: every (have, want) pair over a
+    [4, 8] tensor gives the local slice ``want`` names, and its gradient
+    is the zero-padded / reduce-scattered transpose."""
+    body = """
+    import itertools
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import sharding as tsh
+    from repro_torch.parallel.sharding import local_box, placements
+
+    def main(rank, world, args):
+        mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+        full = torch.arange(32.0).reshape(4, 8)
+        specs = [(None, None), ("data", None), ("model", None),
+                 (None, "data"), ("data", "model"), ("model", "data"),
+                 ((("data", "model")), None), (None, ("data", "model"))]
+        with tsh.use_mesh(mesh):
+            for have, want in itertools.product(specs, specs):
+                box = local_box((4, 8), mesh, placements(have, mesh))
+                x = full[tuple(slice(*b) for b in box)].clone()
+                x.requires_grad_(True)
+                y = tsh.relayout(x, have, want)
+                wbox = local_box((4, 8), mesh, placements(want, mesh))
+                assert torch.equal(y, full[tuple(slice(*b) for b in wbox)]), \
+                    (have, want)
+                # the gradient of the sum of y over all ranks: partial
+                # cotangents, so summed over the ranks x is replicated on
+                # it counts each element once per rank that holds it in y
+                (g,) = torch.autograd.grad(y.sum(), x)
+                rep = lambda sp: 4 // 2 ** len(  # noqa: E731
+                    {a for ax in tsh.spec_axes(sp, 2) for a in ax})
+                used = {a for ax in tsh.spec_axes(have, 2) for a in ax}
+                g = col.psum(g, tuple(a for a in ("data", "model")
+                                      if a not in used))
+                assert torch.all(g == rep(want)), (have, want, g)
+    """
+    res = run_fleet(body, 4, tmp_path)
+    assert all(rc == 0 for rc, _ in res), res[0][1][-3000:]
 
 
 # ------------------------------------------------------------ model axes --
