@@ -5,6 +5,10 @@
                            | --serve-only | --handsfree-only | --dist-only
                            | --tools-only | --parallel-only]
 
+``--mixtral-only`` and ``--families-only`` may be given together, and
+with ``--with-t5`` they run T5's traces beside them as the whole script
+does (a control of the host time the traces cost phases M and F).
+
 Run from a checkout on a machine with one NVIDIA H100. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -183,6 +187,14 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
      path A's run dir and ``--logs-summary`` on the shared store, two
      processes side by side: the manifest counts and log rows they print
      equal ``CheckpointStore.stats()`` and ``log_records``;
+   - T5: ``launch/dryrun.py`` on the reference's production meshes —
+     rank 0's program over a fake process group of 512 ranks, on fake CPU
+     tensors in a process of its own started after the kernel phases and
+     read here: qwen3-14b
+     decode_32k on the (16, 16) "single" and (2, 16, 16) "multi" meshes and
+     mixtral-8x7b train_4k on "single"; per row the per-device FLOPs and
+     bytes, the collective bytes by kind, ``temp_bytes`` + arguments
+     against 80 GB and the trace's seconds;
 19. phase D, mesh-sharded record over a fleet, after ``empty_cache`` with
    no state held: florbench-100m at full width and depth with path A's
    seed, batches and steps, in processes of this script (``--d-child``)
@@ -211,12 +223,12 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    gloo on a loopback coordinator:
    - P1: ``repro_torch.launch.train.main`` with ``--mesh 2x2
      --num-processes 4`` in each process (the sharded step), florbench-100m
-     at full width and depth with path A's seed, batches and checkpoints
-     for one epoch of its steps: each step's loss and grad_norm within
-     ``P_LOSS_RTOL`` / ``P_GN_RTOL`` of path A's same step (tolerances from
-     the CPU tests), the tip ``train@0.0`` restored unsharded within
+     at full width cut to ``LIN_LAYERS`` layers with path A2's seed,
+     batches, steps and checkpoint: each step's loss and grad_norm within
+     ``P_LOSS_RTOL`` / ``P_GN_RTOL`` of path A2's same step (tolerances
+     from the CPU tests), the tip ``train@0.0`` restored unsharded within
      ``P_STATE_TOL`` (parameters) / ``P_GN_RTOL`` (moments) of
-     ``A::train@0.0``, no process holding more than half the state; per
+     ``A2::train@0.0``, no process holding more than half the state; per
      process: step walls, collective calls / bytes / seconds per axis,
      peak memory, #1 / #2 launches;
    - one fleet for the rest: P0 every collective of
@@ -233,6 +245,22 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    - P2: ``python -m repro_torch.launch.replay`` over P1's run (unsharded
      re-execution, two workers): ``deferred check: ok=True`` with one
      hindsight row per step;
+   - P5 / P6, one-process references in this process first, then in the
+     P0 / P3 / P4 fleet on a (2, 2) mesh: P5 qwen3-14b at its published widths
+     cut to ``P5_LAYERS`` layers, weights-stationary
+     (``param_shardings(serve=True)``), phase S2's 8 prompts of 2048
+     tokens in bf16 compute through ``Model.prefill`` / ``decode`` under
+     ``use_mesh`` (the seq_shard prefill, the decode over slots sharded on
+     "model"), ``P5_STEPS`` decode steps fed the one-process run's greedy
+     tokens: every step's logits within ``P5_TOL`` of the one-process
+     run's largest logit, two runs bit for bit; per process prefill wall,
+     decode median, collectives per axis, peak memory. P6 each remaining
+     family's sharded train step (``P6_FAMILIES``: MLA, Mamba1, Mamba2 +
+     shared attention, encoder-decoder, the image prefix, seq_shard) at
+     its published widths, depth cut: loss and grad_norm within
+     ``P_LOSS_RTOL`` / ``P_GN_RTOL`` of the one-process step, zamba2's
+     step twice to the same bits, no process over ``P6_PEAK_GB`` or
+     holding half its state;
 21. a ``kernels`` JSON line (for the checkpoint kernels, their launches in
    paths A, R1, B, C, A2, W, W2, R3, H, D and P and their passes over the
    mixtral state and phase F's four states, outside that count; for the
@@ -243,8 +271,9 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
 alone after the build, ``--families-only`` phase F alone, ``--serve-only``
 phase S alone, ``--handsfree-only`` phase H alone, ``--dist-only``
 path A (which phase D reads) and phase D, ``--tools-only`` phase S,
-path A2 and phase T (T4 then reads A2's run), and ``--parallel-only``
-path A and phase P (P3's reference step then runs in this process).
+path A2 and phase T (T4 then reads A2's run), and
+``--parallel-only`` path A2 and phase P (P3's reference step then runs in
+this process).
 Any failed phase, and any of phase D's or phase P's processes that fails,
 exits non-zero before the last line is printed. The run directories live
 under ``build/chip_smoke`` (git-ignored) and are removed at the end.
@@ -289,6 +318,8 @@ R2_ROWS = os.path.join(WORK, "r2_merged_replay.jsonl")
 # each of their restores and checkpoints about 2.8x smaller
 LIN_LAYERS = 2
 A2_TIP = "A2::train@0.0"
+# path A2's (step, loss, grad_norm, wall) per step, for phase P1
+A2_STEPS: list = []
 # phase M: mixtral-8x7b at its published widths, depth cut from 32 layers
 # to 1, which is one whole period (every layer is SWA + MoE); one sequence
 # of 8192 tokens, so the 4096-token window bites
@@ -1224,8 +1255,9 @@ def path_a2(torch, ops, dev, smoke=False):
     run = os.path.join(WORK, "path_a2")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = launch_train(dev, run, 1, "--run-id", "A2", smoke=smoke,
-                       layers=LIN_LAYERS)
+    out = launch_train(dev, run, 1, "--run-id", "A2", "--print-steps",
+                       smoke=smoke, layers=LIN_LAYERS)
+    A2_STEPS[:] = out["steps"]
     sync(torch, dev)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1579,7 +1611,8 @@ def phase_m1(torch, dev, cfg, params):
                              dev)["tokens"]
     with torch.no_grad():
         x = rms_norm(embed_tokens(cfg32, params["embed"]["table"], tokens,
-                                  torch.float32), lyr["ln2"], cfg.norm_eps)
+                                  torch.float32)[0], lyr["ln2"],
+                     cfg.norm_eps)
         r0 = p["router"][:, 0]
         cases = [("layer input", x), ("leaning to expert 0",
                                       x + 3.0 * r0 / r0.norm())]
@@ -2349,13 +2382,16 @@ def d_wait(role: str, procs: list, timeout: int, run_dir=None) -> list:
     default) by rank."""
     n = len(procs)
     try:
+        errs = []
         for r, p in enumerate(procs):
             out, err = p.communicate(timeout=timeout)
             for line in out.strip().splitlines():
                 say(f"  {role} p{r}| {line}")
             if p.returncode != 0:
-                fail(f"{role} fleet process {r} exited {p.returncode}:\n"
-                     f"{err[-4000:]}")
+                errs.append(f"{role} fleet process {r} exited "
+                            f"{p.returncode}:\n{err[-3000:]}")
+        if errs:
+            fail("\n".join(errs))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2685,7 +2721,10 @@ def phase_d(torch, dev, digests_a: dict, smoke=False) -> dict:
 # out_spec reads it). P4 is phase T2's setup and tolerance.
 P_MESH = (2, 2)
 P_RUN = os.path.join(WORK, "path_p")
-# P1 runs one epoch of path A's steps (its tip is A::train@0.0's peer)
+# P1 runs path A2's one epoch at its cut (LIN_LAYERS of 12 layers; its
+# tip is A2::train@0.0's peer): at full depth its checkpoint writes and
+# collectives took 41.3 s on the card, the first cut that made room for
+# P5 / P6
 P_EPOCHS = 1
 # P1 checkpoints every epoch, as path A does (``--no-adaptive``): with the
 # controller deciding, at the launcher's default budget it declines every
@@ -2719,7 +2758,8 @@ def p1_child(rank: int, port: int, dev: str, smoke: bool):
     col.reset_counts()
     out = launcher.main([
         "--arch", "florbench-100m", "--device", dev_t.type,
-        *(["--smoke"] if smoke else []), "--batch", str(BATCH), "--seq",
+        *(["--smoke"] if smoke else []), "--layers", str(LIN_LAYERS),
+        "--batch", str(BATCH), "--seq",
         str(SEQ), "--epochs", str(P_EPOCHS), "--steps-per-epoch",
         str(STEPS),
         "--seed", str(SEED), "--run-dir", P_RUN, "--print-steps",
@@ -2746,7 +2786,8 @@ def p1_child(rank: int, port: int, dev: str, smoke: bool):
 def p_child(rank: int, port: int, dev: str, smoke: bool):
     """One process of phase P's other fleet: P0 the transport probe and
     the bit-determinism of the sharded step on a (2, 2) mesh, P4 the stage
-    scan on a 4-rank "stage" axis, P3 mixtral on a (1, 4) mesh."""
+    scan on a 4-rank "stage" axis, P3 mixtral on a (1, 4) mesh, then P5
+    and P6 on the (2, 2) mesh."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -2771,6 +2812,12 @@ def p_child(rank: int, port: int, dev: str, smoke: bool):
         m14 = DeviceMesh(dev_t.type, torch.arange(n).reshape(P3_MESH),
                          mesh_dim_names=("data", "model"))
         res["p3"] = p3_mixtral(torch, dev_t, m14, smoke)
+        t0 = time.perf_counter()
+        res["p5"] = p5_serve(torch, dev_t, mesh, smoke)
+        res["p5"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["p6"] = p6_steps(torch, dev_t, mesh, smoke)
+        res["p6_wall_s"] = time.perf_counter() - t0
         with open(os.path.join(P_RUN, f"parallel_p{rank}.json"), "w") as f:
             json.dump(res, f)
         dist.barrier()
@@ -2991,14 +3038,15 @@ def phase_p(torch, dev, steps_a: list, smoke=False) -> dict:
         fail("P1: the four processes report different step metrics")
     steps_a = steps_a[:P_EPOCHS * STEPS]
     if len(steps) != P_EPOCHS * STEPS or len(steps_a) != len(steps):
-        fail(f"P1 ran {len(steps)} steps, path A {len(steps_a)}")
+        fail(f"P1 ran {len(steps)} steps, path A2 {len(steps_a)}")
     gaps = []
     for (i, loss, gn, _), (_, loss_a, gn_a, _) in zip(steps, steps_a):
         gl, gg = abs(loss - loss_a) / abs(loss_a), abs(gn - gn_a) / abs(gn_a)
         gaps.append((gl, gg))
         if not (gl <= P_LOSS_RTOL and gg <= P_GN_RTOL):
             fail(f"P1 step {i}: loss {loss} / grad_norm {gn} against path "
-                 f"A's {loss_a} / {gn_a} (rtol {P_LOSS_RTOL} / {P_GN_RTOL})")
+                 f"A2's {loss_a} / {gn_a} (rtol {P_LOSS_RTOL} / "
+                 f"{P_GN_RTOL})")
     counts: dict = {}
     for r in recs:
         if r["local_bytes"] * 2 > r["state_bytes"]:
@@ -3022,11 +3070,12 @@ def phase_p(torch, dev, steps_a: list, smoke=False) -> dict:
     if not tips:
         fail("P1 wrote no checkpoint, so there is no tip")
     e = tips[-1]
-    cfg = (C.get_smoke if smoke else C.get)("florbench-100m")
+    cfg = C.with_layers((C.get_smoke if smoke else C.get)("florbench-100m"),
+                        LIN_LAYERS)
     tip = store.get_tree(f"train@{e}.0", like=placeholder_like(torch, cfg,
                                                                dev))
     ref = CheckpointStore(STORE).get_tree(
-        f"A::train@{e}.0", like=placeholder_like(torch, cfg, dev))
+        f"A2::train@{e}.0", like=placeholder_like(torch, cfg, dev))
     worst = {"params": 0.0, "moments": 0.0}
     for (path, x), (_, y) in zip(tree_leaves_with_paths(tip),
                                  tree_leaves_with_paths(ref)):
@@ -3042,19 +3091,29 @@ def phase_p(torch, dev, steps_a: list, smoke=False) -> dict:
     # lr times it
     if not (worst["params"] <= P_STATE_TOL
             and worst["moments"] <= P_GN_RTOL):
-        fail(f"P1 tip train@{e}.0 differs from A::train@{e}.0 by {worst} of "
+        fail(f"P1 tip train@{e}.0 differs from A2::train@{e}.0 by {worst} of "
              f"a leaf's largest magnitude (tol {P_STATE_TOL} / {P_GN_RTOL})")
     del tip, ref
     say(f"P1: python -m repro_torch.launch.train --mesh 2x2 --num-processes "
-        f"4, florbench-100m {P_EPOCHS}x{STEPS} steps at {BATCH}x{SEQ}, "
+        f"4, florbench-100m cut to {LIN_LAYERS} layers, {P_EPOCHS}x{STEPS} "
+        f"steps at {BATCH}x{SEQ}, "
         f"sharded step on one card, wall {p1:.2f} s; loss / grad_norm gap "
-        f"to path A at most {max(g for g, _ in gaps):.3e} / "
+        f"to path A2 at most {max(g for g, _ in gaps):.3e} / "
         f"{max(g for _, g in gaps):.3e} (tol {P_LOSS_RTOL} / {P_GN_RTOL}); "
         f"tip train@{e}.0 restored unsharded: params within "
         f"{worst['params']:.3e}, moments within {worst['moments']:.3e} of "
-        f"A::train@{e}.0's largest magnitudes (tol {P_STATE_TOL} / "
+        f"A2::train@{e}.0's largest magnitudes (tol {P_STATE_TOL} / "
         f"{P_GN_RTOL})")
-    # ---- P0, P1's determinism, P4, P3: one fleet ----
+    # ---- P0, P1's determinism, P4, P3, P5, P6: one fleet, P5's and P6's
+    # one-process references made first in this process ----
+    t0 = time.perf_counter()
+    ref56 = p56_reference(torch, dev, smoke)
+    ref56["wall_s"] = time.perf_counter() - t0
+    say(f"P5/P6 references in this process: P5 one-process run "
+        f"{ref56['p5_s']:.2f} s (prefill {ref56['p5_prefill_s']:.3f} s, "
+        f"decode step median {ref56['p5_decode_s'] * 1e3:.2f} ms), P6 six "
+        f"one-process steps {ref56['p6_s']:.2f} s; this process then "
+        f"reserves {ref56.get('lead_gb', 0.0):.2f} GB of the card")
     t0 = time.perf_counter()
     par = d_wait("parallel", d_start("parallel", 4, dev, smoke),
                  timeout=900, run_dir=P_RUN)
@@ -3123,11 +3182,13 @@ def phase_p(torch, dev, steps_a: list, smoke=False) -> dict:
                     f"{p['local_bytes'] / 1e9:.2f} of "
                     f"{p['state_bytes'] / 1e9:.2f} GB" for p in p3)
         + f"; collectives {axis_line(p3[0]['collectives'])}")
-    say(f"P0/P1-determinism/P4/P3 fleet wall {t_par:.2f} s")
+    p56_report(par, ref56)
+    say(f"P0/P1-determinism/P4/P3/P5/P6 fleet wall {t_par:.2f} s")
     # ---- P2: the replay launcher over P1's run ----
     cmd = [sys.executable, "-m", "repro_torch.launch.replay",
            "--run-dir", P_RUN, "--probe", "train", "--nworkers", "2",
            "--check", "--batch", str(BATCH), "--seq", str(SEQ),
+           "--layers", str(LIN_LAYERS),
            "--seed", str(SEED), "--device", torch.device(dev).type,
            *(["--smoke"] if smoke else [])]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -3148,9 +3209,424 @@ def phase_p(torch, dev, steps_a: list, smoke=False) -> dict:
     say(f"P2: python -m repro_torch.launch.replay over P1's run (unsharded "
         f"re-execution, 2 workers): deferred check ok=True compared {m[2]} "
         f"hindsight {m[3]}; wall {p2:.2f} s")
-    say(f"phase P: P1 {p1:.2f} s, P0/P3/P4 fleet {t_par:.2f} s, P2 "
+    say(f"phase P: P1 {p1:.2f} s, P5/P6 references {ref56['wall_s']:.2f} "
+        f"s, P0/P1-determinism/P4/P3/P5/P6 fleet {t_par:.2f} s, P2 "
         f"{p2:.2f} s; total {time.perf_counter() - t_phase:.2f} s")
     return counts
+
+
+# -------------------------------------------------------- phase P5 / P6 --
+# P5: sharded serving. qwen3-14b at its published widths cut to P5_LAYERS
+# of 40 layers (8.9 GB of f32 parameters; 10 layers took 34.2 s of its
+# fleet, 6 layers 24.7 s: the first cuts made to keep the script within
+# 1000 s), phase S2's 8 prompts of 2048
+# tokens in the config's bf16 compute, prefill then P5_STEPS decode steps
+# fed the one-process run's greedy tokens, on a (2, 2) mesh of four gloo
+# processes: its seq_shard prefill (the residual's sequence over "model")
+# and its decode over the cache_seq layout (the slots over "model") are
+# the two layouts new in this slice. The weights are laid out
+# weights-stationary (``param_shardings(serve=True)`` with
+# ``serve_replicate_fsdp``: over "model" only, half the weights a
+# process): under the training layout every decode step would all-gather
+# 0.37 GB a layer a process through gloo's host path. P5_TOL is of the
+# one-process run's largest logit: bf16 on both sides, sharded against
+# unsharded, measured at 1.4e-2 on the CPU at smoke widths (the
+# reference's own gap is 1.0e-2 at its smoke widths), with room for the
+# depth; 1.58e-2 at 10 layers on the card.
+P5_ARCH, P5_LAYERS, P5_STEPS, P5_TOL = "qwen3-14b", 2, 16, 5e-2
+P5_REF = os.path.join(P_RUN, "p5_reference.pt")
+# P6: each remaining family's sharded train step on (2, 2) at its
+# published widths, depth cut: (arch, layers, batch, seq, cut). One step
+# from the seed on one batch, loss and grad_norm within P_LOSS_RTOL /
+# P_GN_RTOL of the one-process step (bf16 compute; the CPU's smoke gaps:
+# at most 8.1e-4 / 7.0e-3, deepseek-v3's MLA), zamba2 twice to the same
+# bits; no process above P6_PEAK_GB or holding half its state
+P6_FAMILIES = (
+    ("deepseek-v3-671b", 1, 2, 1024, "1 of 61 layers: one leading dense "
+     "layer with MLA, no MoE layer"),
+    ("falcon-mamba-7b", 2, 2, 1024, "2 of 64 layers"),
+    ("zamba2-7b", 6, 2, 1024, "6 of 81 blocks: one group, 5 Mamba2 + the "
+     "shared attention block"),
+    ("seamless-m4t-large-v2", 2, 2, 1024, "2 + 2 of 24 + 24 encoder + "
+     "decoder layers"),
+    ("llava-next-mistral-7b", 2, 2, 1024, "2 of 32 layers, the 576-patch "
+     "image prefix and 448 text tokens"),
+    ("qwen3-14b", 2, 2, 1024, "2 of 40 layers, seq_shard"),
+)
+P6_PEAK_GB = 18.0
+P6_REF = os.path.join(P_RUN, "p6_reference.json")
+
+
+def p6_cfg(arch: str, layers: int, smoke: bool = False):
+    """A P6 family's config cut to ``layers`` (deepseek-v3: that many
+    leading dense layers and no MoE layer)."""
+    import dataclasses
+
+    import repro_torch.configs as C
+
+    cfg = (C.get_smoke if smoke else C.get)(arch)
+    if cfg.moe is not None and layers < cfg.moe.first_dense_layers:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, first_dense_layers=layers))
+    return C.with_layers(cfg, layers)
+
+
+def p5_cfg():
+    import repro_torch.configs as C
+
+    return C.with_layers(C.get(P5_ARCH), P5_LAYERS).replace(
+        serve_replicate_fsdp=True)
+
+
+def p56_reference(torch, dev, smoke) -> dict:
+    """In this process, before the fleet starts: P5's one-process run (its
+    greedy tokens feed the fleet's decode steps) and each P6 family's
+    one-process step, written to P_RUN; everything freed after."""
+    import repro_torch.configs as C
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+    from repro_torch.train.step import batch_to_device, build_train_step
+
+    t0 = time.perf_counter()
+    cfg = p5_cfg() if not smoke else C.get_smoke(P5_ARCH)
+    batch, prompt = (prompt_batch(cfg, S2_BATCH, S2_PROMPT), S2_PROMPT) \
+        if not smoke else (prompt_batch(cfg, 4, 64), 64)
+    params = build_model(cfg).init(SEED, dev)
+    prefill = build_prefill_step(cfg, prompt + P5_STEPS)
+    decode = build_decode_step(cfg)
+    tb = batch_to_device(batch, dev)
+    sync(torch, dev)
+    t1 = time.perf_counter()
+    caches, logits = prefill(params, tb)
+    sync(torch, dev)
+    t_prefill = time.perf_counter() - t1
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    toks, logs, walls = [tok], [logits.float().cpu()], []
+    for i in range(P5_STEPS):
+        t1 = time.perf_counter()
+        tok, logits, caches = decode(params, caches, tok, prompt + i)
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t1)
+        toks.append(tok)
+        logs.append(logits.float().cpu())
+    torch.save({"tokens": torch.stack(toks[:P5_STEPS]).cpu(),
+                "logits": torch.stack(logs)}, P5_REF)
+    out = {"p5_prefill_s": t_prefill, "p5_decode_s": statistics.median(walls),
+           "p5_s": time.perf_counter() - t0}
+    del params, caches, logits, tb
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = {}
+    for arch, layers, b, seq, _ in P6_FAMILIES:
+        cfg6 = p6_cfg(arch, layers, smoke)
+        init_state, ts = build_train_step(cfg6, device=dev)
+        new, m = ts(init_state(SEED), synthetic_batch(
+            cfg6, b, seq if not smoke else 64, 0, SEED))
+        ref[arch] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"])}
+        del new, m
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(P6_REF, "w") as f:
+        json.dump(ref, f)
+    out["p6_s"] = time.perf_counter() - t0
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        out["lead_gb"] = torch.cuda.memory_reserved(dev) / 1e9
+    return out
+
+
+def p5_serve(torch, dev, mesh, smoke) -> dict:
+    """P5 in one fleet process: the parameters placed from the seed (each
+    rank keeps its slices), two runs of prefill + P5_STEPS decode steps
+    fed the reference's tokens, the first counted and timed."""
+    import repro_torch.configs as C
+    from repro_torch.launch.specs import param_shardings
+    from repro_torch.models import build_model
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import place, use_mesh
+    from repro_torch.train.step import batch_to_device
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = p5_cfg() if not smoke else C.get_smoke(P5_ARCH).replace(
+        serve_replicate_fsdp=True)
+    model = build_model(cfg)
+    sh, _ = param_shardings(model, mesh, serve=True)
+
+    def spec_at(path):
+        t = sh
+        for k in path:
+            t = t[k]
+        return t.spec
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(SEED, dev, place=lambda path, x: place(
+        x, mesh, spec_at(path)))
+    sync(torch, dev)
+    t_init = time.perf_counter() - t0
+    if dev.type == "cuda":
+        # each leaf was made whole before its slice was kept: give the
+        # transients back, four processes share the card
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        print(f"P5 parameters placed: {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+              f" GB here, {free / 1e9:.2f} of {total / 1e9:.2f} GB of the "
+              f"card free", flush=True)
+    ref = torch.load(P5_REF)
+    prompt = S2_PROMPT if not smoke else 64
+    batch = batch_to_device(prompt_batch(cfg, S2_BATCH, S2_PROMPT) if not
+                            smoke else prompt_batch(cfg, 4, 64), dev)
+    toks = ref["tokens"].to(dev)
+
+    def run():
+        with use_mesh(mesh), torch.no_grad():
+            sync(torch, dev)
+            t1 = time.perf_counter()
+            caches, logits = model.prefill(params, batch, prompt + P5_STEPS)
+            sync(torch, dev)
+            t_pre = time.perf_counter() - t1
+            logs, walls = [logits.float().cpu()], []
+            for i in range(P5_STEPS):
+                t1 = time.perf_counter()
+                logits, caches = model.decode(params, caches, toks[i],
+                                              prompt + i)
+                sync(torch, dev)
+                walls.append(time.perf_counter() - t1)
+                logs.append(logits.float().cpu())
+        del caches
+        return torch.stack(logs), t_pre, walls
+
+    col.reset_counts()
+    logs, t_pre, walls = run()
+    counts = col.counts()
+    again, _, _ = run()
+    want = ref["logits"]
+    scale = float(want.abs().max())
+    gaps = [float((a - b).abs().max()) / scale for a, b in zip(logs, want)]
+    local = sum(x.to_local().numel() * x.to_local().element_size()
+                for x in tree_leaves(params))
+    whole = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    del params
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"gaps": gaps, "same_bits": bool(torch.equal(logs, again)),
+            "prefill_s": t_pre, "decode_s": statistics.median(walls),
+            "decode_walls": walls, "init_s": t_init, "collectives": counts,
+            "peak_gb": peak, "local_bytes": local, "param_bytes": whole,
+            "argmax_equal": float((logs.argmax(-1) == want.argmax(-1))
+                                  .float().mean())}
+
+
+def p6_steps(torch, dev, mesh, smoke) -> dict:
+    """P6 in one fleet process: each family's sharded step (one after
+    another), with its state's share, peak memory and collectives."""
+    import repro_torch.configs as C
+    from repro_torch.data import synthetic_batch
+    from repro_torch.parallel import collectives as col
+    from repro_torch.train.step import build_train_step
+    from repro_torch.utils.pytree import tree_leaves
+
+    out = {}
+    for arch, layers, b, seq, _ in P6_FAMILIES:
+        cfg = p6_cfg(arch, layers, smoke)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        init_state, ts = build_train_step(cfg, device=dev, mesh=mesh)
+        state = init_state(SEED)
+        sync(torch, dev)
+        t_init = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        batch = synthetic_batch(cfg, b, seq if not smoke else 64, 0, SEED)
+        col.reset_counts()
+        t0 = time.perf_counter()
+        new, m = ts(state, batch)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        counts = col.counts()
+        r = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+             "wall_s": wall, "init_s": t_init, "collectives": counts,
+             "local_bytes": sum(x.to_local().numel()
+                                * x.to_local().element_size()
+                                for x in tree_leaves(state)),
+             "state_bytes": sum(x.numel() * x.element_size()
+                                for x in tree_leaves(state))}
+        if arch == "zamba2-7b":
+            again, m2 = ts(state, batch)
+            r["same_bits"] = all(
+                bits_equal(torch, x.to_local(), y.to_local())
+                for x, y in zip(tree_leaves(new), tree_leaves(again))) \
+                and all(bits_equal(torch, m[k], m2[k]) for k in m)
+            del again, m2
+        del state, new, m
+        r["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 \
+            if dev.type == "cuda" else 0.0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[arch] = r
+    return out
+
+
+def p56_report(recs: list, ref: dict):
+    """P5's and P6's checks and lines over the fleet's results ``recs``
+    and the references ``ref``."""
+    with open(P6_REF) as f:
+        ref6 = json.load(f)
+    # ---- P5 ----
+    p5 = [r["p5"] for r in recs]
+    cfg = p5_cfg()
+    for r, p in zip(recs, p5):
+        worst = max(p["gaps"])
+        if not worst <= P5_TOL:
+            fail(f"P5 process {r['rank']}: logits {worst:.3e} of the largest "
+                 f"from the one-process run's (tol {P5_TOL})")
+        if not p["same_bits"]:
+            fail(f"P5 process {r['rank']}: two runs gave different logits")
+        # weights-stationary: over "model" only, half the weights and the
+        # norms a process
+        if p["local_bytes"] >= p["param_bytes"]:
+            fail(f"P5 process {r['rank']} holds all "
+                 f"{p['param_bytes']} bytes of the parameters")
+        say(f"P5 process {r['rank']}: prefill {p['prefill_s']:.3f} s, decode "
+            f"step median {p['decode_s'] * 1e3:.2f} ms (min "
+            f"{min(p['decode_walls']) * 1e3:.2f}, max "
+            f"{max(p['decode_walls']) * 1e3:.2f}); collectives "
+            f"{axis_line(p['collectives'])}; parameters "
+            f"{p['local_bytes'] / 1e9:.2f} of {p['param_bytes'] / 1e9:.2f} "
+            f"GB; peak {p['peak_gb']:.2f} GB; placed in {p['init_s']:.2f} s")
+    gaps = p5[0]["gaps"]
+    say(f"P5: {P5_ARCH} at published widths, {P5_LAYERS} of 40 layers, "
+        f"{cfg.dtype} compute, {S2_BATCH} prompts x {S2_PROMPT} tokens on a "
+        f"{P_MESH} mesh (seq_shard prefill, decode over cache_seq slots), "
+        f"weights-stationary: prefill logits {gaps[0]:.3e}, decode steps at "
+        f"most {max(gaps[1:]):.3e} of the one-process run's largest logit "
+        f"(tol {P5_TOL}); argmax equal on {p5[0]['argmax_equal']:.1%} of "
+        f"rows; two runs bit-identical in all four processes; one-process "
+        f"prefill {ref['p5_prefill_s']:.3f} s / decode "
+        f"{ref['p5_decode_s'] * 1e3:.2f} ms beside the fleet's "
+        f"{p5[0]['prefill_s']:.3f} s / {p5[0]['decode_s'] * 1e3:.2f} ms")
+    # ---- P6 ----
+    for arch, layers, b, seq, cut in P6_FAMILIES:
+        rows = [r["p6"][arch] for r in recs]
+        want = ref6[arch]
+        g = rows[0]
+        gl = abs(g["loss"] - want["loss"]) / abs(want["loss"])
+        gg = abs(g["grad_norm"] - want["grad_norm"]) / abs(want["grad_norm"])
+        if any(x["loss"] != g["loss"] or x["grad_norm"] != g["grad_norm"]
+               for x in rows):
+            fail(f"P6 {arch}: the four processes report different metrics")
+        if not (gl <= P_LOSS_RTOL and gg <= P_GN_RTOL):
+            fail(f"P6 {arch}: loss {g['loss']} / grad_norm {g['grad_norm']} "
+                 f"against the one-process {want['loss']} / "
+                 f"{want['grad_norm']} (rtol {P_LOSS_RTOL} / {P_GN_RTOL})")
+        for x in rows:
+            if x["local_bytes"] * 2 > x["state_bytes"]:
+                fail(f"P6 {arch}: a process holds {x['local_bytes']} of the "
+                     f"{x['state_bytes']}-byte state")
+            if x["peak_gb"] > P6_PEAK_GB:
+                fail(f"P6 {arch}: a process peaked at {x['peak_gb']:.2f} GB "
+                     f"(limit {P6_PEAK_GB})")
+        if arch == "zamba2-7b" and not all(x["same_bits"] for x in rows):
+            fail("P6 zamba2-7b: two steps from one state differ")
+        say(f"P6 {arch}: {cut}; {b}x{seq} tokens; loss {g['loss']:.6f} vs "
+            f"{want['loss']:.6f} (gap {gl:.3e}, tol {P_LOSS_RTOL}), "
+            f"grad_norm {g['grad_norm']:.4f} vs {want['grad_norm']:.4f} (gap "
+            f"{gg:.3e}, tol {P_GN_RTOL})"
+            + ("; twice from one state: the same bits" if arch == "zamba2-7b"
+               else "")
+            + f"; step {g['wall_s']:.2f} s, init {g['init_s']:.2f} s; per "
+            "process " + ", ".join(
+                f"state {x['local_bytes'] / 1e9:.2f} of "
+                f"{x['state_bytes'] / 1e9:.2f} GB / peak {x['peak_gb']:.2f} "
+                f"GB" for x in rows)
+            + f"; collectives {axis_line(g['collectives'])}")
+    say(f"P5/P6: references {ref['wall_s']:.2f} s; in the fleet P5 "
+        f"{recs[0]['p5']['wall_s']:.2f} s, P6 {recs[0]['p6_wall_s']:.2f} s "
+        f"(process 0)")
+
+
+# ---------------------------------------------------------------- T5 --
+# T5: rows of the dry run on the reference's production meshes, rank 0's
+# program traced over a fake process group of 512 ranks on fake CPU
+# tensors (the same graph as on the card's, and no CUDA context beside
+# phases M and F), in a process of its own started after the build, while
+# the card's phases keep the host's other cores idle, and read at the end
+# of phase T (started at phase T, its traces slowed T3's and D's by
+# ~10 s)
+T5_CELLS = (("qwen3-14b", "decode_32k", "single"),
+            ("qwen3-14b", "decode_32k", "multi"),
+            ("mixtral-8x7b", "train_4k", "single"))
+T5_CODE = """
+import json, os, sys, time
+from repro_torch.launch import dryrun
+cells, out, dev = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
+dryrun.FX_DIR = os.path.join(os.path.dirname(out), "fx_t5")
+rows = []
+for arch, shape, mesh in cells:
+    t0 = time.perf_counter()
+    r = dryrun.run_cell(arch, shape, device=dev, mesh=mesh)
+    r["wall_s"] = time.perf_counter() - t0
+    rows.append(r)
+with open(out, "w") as f:
+    json.dump(rows, f)
+"""
+
+
+def t5_start():
+    """Start T5's traces in the background; returns (process, out path,
+    start time)."""
+    os.makedirs(WORK, exist_ok=True)
+    out = os.path.join(WORK, "t5_rows.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("LOCAL_RANK", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", T5_CODE, json.dumps(T5_CELLS), out, "cpu"],
+        cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out, time.perf_counter()
+
+
+def t5_report(handle, card: str):
+    """Wait for T5's traces; print one row per cell."""
+    proc, out, t0 = handle
+    try:
+        _, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        fail(f"T5: the dry run exited {proc.returncode}:\n{err[-4000:]}")
+    with open(out) as f:
+        rows = json.load(f)
+    for r in rows:
+        if r["status"] != "ok":
+            fail(f"T5 {r['arch']} {r['shape']} {r['mesh']}: {r}")
+        mem = r["memory"]
+        coll = r["collective_bytes_per_device"]
+        say(f"T5 {r['arch']} {r['shape']} on the {r['mesh']} mesh "
+            f"({r['ndev']} ranks, rank 0 traced over a fake group): "
+            f"{r['flops_per_device']:.4g} FLOPs and "
+            f"{r['bytes_accessed_per_device']:.4g} bytes a device; "
+            f"collective bytes "
+            + ", ".join(f"{k} {v:.4g}" for k, v in coll.items()
+                        if k != "total" and v)
+            + f" (total {coll['total']:.4g}); temp "
+            f"{mem['temp_bytes'] / 1e9:.2f} GB + arguments "
+            f"{mem['argument_bytes'] / 1e9:.2f} GB against 80 GB; "
+            f"{r['graph_nodes']} nodes traced in {r['trace_s']:.2f} s "
+            f"({r['wall_s']:.2f} s with the analysis)")
+    say(f"T5: {len(rows)} rows in {time.perf_counter() - t0:.1f} s of "
+        f"background; card {card}; the terms are the H100 data-sheet "
+        f"peaks'")
 
 
 # ------------------------------------------------------------- phase T --
@@ -3414,9 +3890,11 @@ def t4_reanalyze(run_dir: str, store: str):
         f"log_records give them; two processes in {wall:.2f} s")
 
 
-def phase_t(torch, dev, hbm_bps, serve_times, run_dir, store) -> dict:
+def phase_t(torch, dev, hbm_bps, serve_times, run_dir, store,
+            t5=None) -> dict:
     """Phase T: T1 codec, T2 stage scan, T3 roofline rows beside the
-    card's times, T4 reanalyze over ``run_dir`` and ``store``."""
+    card's times, T4 reanalyze over ``run_dir`` and ``store``, then T5's
+    rows (``t5``: ``t5_start``'s handle)."""
     import repro_torch.configs as C
     from repro_torch.data import synthetic_batch
     from repro_torch.train.step import batch_to_device, build_train_step
@@ -3435,9 +3913,11 @@ def phase_t(torch, dev, hbm_bps, serve_times, run_dir, store) -> dict:
     del state
     torch.cuda.empty_cache()
     t4_reanalyze(run_dir, store)
+    if t5 is not None:
+        t5_report(t5, smi_line())
     wall = time.perf_counter() - t_start
     say(f"phase T: {wall:.1f} s (T1 codec, T2 stage scan, T3 roofline, T4 "
-        f"reanalyze)")
+        f"reanalyze, T5's rows)")
     return {"T1": t1, "T2": t2, "T3": t3, "wall_s": wall}
 
 
@@ -3568,26 +4048,33 @@ def main():
     def lap(tag):
         say(f"phase {tag} done at {time.perf_counter() - t_start:.1f} s")
 
-    if "--mixtral-only" in sys.argv[1:]:
-        phase_m(torch, dev, hbm_bps)
-        lap("M")
-        say("--mixtral-only: stopping after phase M")
-        return
-    if "--families-only" in sys.argv[1:]:
-        phase_f(torch, dev, hbm_bps)
-        lap("F")
-        say("--families-only: stopping after phase F")
+    only = [a for a in ("--mixtral-only", "--families-only")
+            if a in sys.argv[1:]]
+    if only:
+        t5 = t5_start() if "--with-t5" in sys.argv[1:] else None
+        if "--mixtral-only" in only:
+            phase_m(torch, dev, hbm_bps)
+            torch.cuda.empty_cache()
+            lap("M")
+        if "--families-only" in only:
+            phase_f(torch, dev, hbm_bps)
+            lap("F")
+        if t5 is not None:
+            t5_report(t5, smi_line())
+        say(f"{' '.join(only)}: stopping after phase "
+            f"{'F' if '--families-only' in only else 'M'}")
         return
     if "--tools-only" in sys.argv[1:]:
         # phase T reads phase S's times and a recorded run and store: the
         # lineage parent A2 (2 layers, one checkpoint) is the cheapest
+        t5 = t5_start()
         serve_times = phase_s(torch, dev, hbm_bps)
         torch.cuda.empty_cache()
         lap("S")
         path_a2(torch, ops, dev)
         lap("A2")
         phase_t(torch, dev, hbm_bps, serve_times,
-                os.path.join(WORK, "path_a2"), STORE)
+                os.path.join(WORK, "path_a2"), STORE, t5)
         lap("T")
         say("--tools-only: stopping after phase T")
         return
@@ -3602,11 +4089,11 @@ def main():
         say("--handsfree-only: stopping after phase H")
         return
     if "--parallel-only" in sys.argv[1:]:
-        # phase P reads path A's steps and store (P1's comparisons)
-        main_path_a(torch, ops, dev)
+        # phase P reads path A2's steps and store (P1's comparisons)
+        path_a2(torch, ops, dev)
         torch.cuda.empty_cache()
-        lap("A")
-        say(f"launches path P: {json.dumps(phase_p(torch, dev, A_STEPS))}")
+        lap("A2")
+        say(f"launches path P: {json.dumps(phase_p(torch, dev, A2_STEPS))}")
         lap("P")
         say("--parallel-only: stopping after phase P")
         return
@@ -3623,6 +4110,9 @@ def main():
         return
     cfg = C.get("florbench-100m")
     results = kernel_phase(torch, dev, hbm_bps, cfg)
+    t5 = None
+    if "--kernels-only" not in sys.argv[1:]:
+        t5 = t5_start()
     if "--kernels-only" in sys.argv[1:]:
         say(json.dumps({k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
                                                "library_ms", "max_abs_err")}
@@ -3675,13 +4165,13 @@ def main():
     path_q(torch)
     lap("Q")
     phase_t(torch, dev, hbm_bps, serve_times, os.path.join(WORK, "path_a"),
-            STORE)
+            STORE, t5)
     lap("T")
     torch.cuda.empty_cache()
     counts_d = phase_d(torch, dev, digests_a)
     lap("D")
     torch.cuda.empty_cache()
-    counts_p = phase_p(torch, dev, A_STEPS)
+    counts_p = phase_p(torch, dev, A2_STEPS)
     lap("P")
     paths = {"A": counts_a, "R1": counts_r1, "B": counts_b, "C": counts_c,
              "A2": counts_a2, "W": counts_w, "W2": counts_w2,

@@ -203,8 +203,8 @@ def _read_shard_range(store, mleaf: dict, store_shard: int, c_lo: int,
     enc = mleaf.get("enc")
     chunks = mleaf["chunks"]
     parts = []
-    for i in range(c_lo, c_hi):
-        raw = store.get_chunk(chunks[i], shard=store_shard)
+    for i, raw in zip(range(c_lo, c_hi),
+                      store.get_chunks(chunks[c_lo:c_hi], shard=store_shard)):
         if enc and enc[i] != "raw":
             from repro_torch.kernels.ops import decode_wire_chunk
             raw = decode_wire_chunk(raw, enc[i], dtype)

@@ -417,9 +417,9 @@ class CheckpointPipeline:
                 else:
                     ebase = list(ebase)
                 delta_hashes = {}
-                for i, data, ce in zip(leaf["changed_idx"], leaf["chunks"],
-                                       cencs):
-                    h, nb, new = store.put_chunk(data)
+                for i, data, ce, (h, nb, new) in zip(
+                        leaf["changed_idx"], leaf["chunks"], cencs,
+                        store.put_chunks(leaf["chunks"])):
                     base[i] = h
                     ebase[i] = ce
                     delta_hashes[str(i)] = h
@@ -725,9 +725,9 @@ class CheckpointPipeline:
                 ebase = ["raw"] * n if ebase is None or len(ebase) != n \
                     else list(ebase)
                 delta_hashes = {}
-                for i, data, ce in zip(ent["changed_idx"], ent["chunks"],
-                                       cencs):
-                    h, nb, new = store.put_chunk(data, shard=hid)
+                for i, data, ce, (h, nb, new) in zip(
+                        ent["changed_idx"], ent["chunks"], cencs,
+                        store.put_chunks(ent["chunks"], shard=hid)):
                     base[i] = h
                     ebase[i] = ce
                     delta_hashes[str(i)] = h

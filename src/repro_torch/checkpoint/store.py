@@ -67,7 +67,8 @@ import json
 import os
 import threading
 import time
-from typing import Any, Iterable, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -100,6 +101,23 @@ def _leaf_to_np(x) -> tuple[np.ndarray, str]:
 
 def _hash(b: bytes) -> str:
     return hashlib.blake2b(b, digest_size=16).hexdigest()
+
+
+# A chunk file holds 64 KiB of native bytes; a pool's time goes to zlib,
+# blake2b and the per-file system calls, all of which release the GIL. The
+# batch calls (``put_chunks`` / ``get_chunks``) overlap them over this many
+# threads: on an 8-core NVIDIA H100 host, 8 threads put 4.5x the bytes of
+# one and got 1.8x (tools/store_io_probe.py).
+IO_THREADS = 8
+
+
+def _pmap(fn: Callable, items: list) -> list:
+    """``[fn(x) for x in items]``, over ``IO_THREADS`` threads when there is
+    more than one item; results in the items' order."""
+    if len(items) < 2:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(min(IO_THREADS, len(items))) as ex:
+        return list(ex.map(fn, items))
 
 
 def np_dtype(name: str) -> np.dtype:
@@ -238,13 +256,29 @@ class CheckpointStore:
         shard's pool — bytes recorded on a host land on that host's disk).
         Returns (hash, compressed_bytes_written, was_new)."""
         h = _hash(data)
+        return (h,) + self._put_hashed(h, data, shard)
+
+    def _put_hashed(self, h: str, data: bytes, shard) -> tuple[int, bool]:
         path = self._chunk_path(h, shard)
         if os.path.exists(path):
-            return h, 0, False
+            return 0, False
         self._ensure_dir(os.path.dirname(path))
         payload = self._codec.compress(data)
         _atomic_write(path, payload)   # chunks are cross-run shared state
-        return h, len(payload), True
+        return len(payload), True
+
+    def put_chunks(self, datas: list, shard=None) -> list[tuple[str, int, bool]]:
+        """``put_chunk`` over a batch, in parallel (``IO_THREADS``), with
+        the results of calling it on each in turn: a hash that repeats
+        within the batch is written by its first occurrence only."""
+        hashes = _pmap(_hash, datas)
+        first: dict[str, int] = {}
+        for i, h in enumerate(hashes):
+            first.setdefault(h, i)
+        todo = sorted(first.values())
+        done = dict(zip(todo, _pmap(
+            lambda i: self._put_hashed(hashes[i], datas[i], shard), todo)))
+        return [(h,) + done.get(i, (0, False)) for i, h in enumerate(hashes)]
 
     # kept under the old private name too — tests and older callers use it
     _put_chunk = put_chunk
@@ -261,6 +295,10 @@ class CheckpointStore:
             return self._codec.decompress(f.read())
 
     _get_chunk = get_chunk
+
+    def get_chunks(self, hashes: list, shard=None) -> list[bytes]:
+        """``get_chunk`` over a batch, in parallel (``IO_THREADS``)."""
+        return _pmap(lambda h: self.get_chunk(h, shard), list(hashes))
 
     def _iter_chunk_files(self):
         """Every chunk file across the flat pool and all shard pools as
@@ -469,10 +507,10 @@ class CheckpointStore:
         for path, leaf in flat:
             arr, dtype = _leaf_to_np(leaf)
             raw = arr.tobytes()
+            pieces = [raw[off:off + CHUNK]
+                      for off in range(0, max(len(raw), 1), CHUNK)]
             chunks = []
-            for off in range(0, max(len(raw), 1), CHUNK):
-                piece = raw[off:off + CHUNK]
-                h, nb, new = self.put_chunk(piece)
+            for piece, (h, nb, new) in zip(pieces, self.put_chunks(pieces)):
                 chunks.append(h)
                 new_bytes += nb
                 total_bytes += len(piece)
@@ -525,10 +563,10 @@ class CheckpointStore:
                 # import: the wire codecs live with the kernels)
                 from repro_torch.kernels.ops import decode_wire_chunk
                 raw = b"".join(
-                    decode_wire_chunk(self.get_chunk(h), e, leaf["dtype"])
-                    for h, e in zip(leaf["chunks"], enc))
+                    decode_wire_chunk(c, e, leaf["dtype"])
+                    for c, e in zip(self.get_chunks(leaf["chunks"]), enc))
             else:
-                raw = b"".join(self.get_chunk(h) for h in leaf["chunks"])
+                raw = b"".join(self.get_chunks(leaf["chunks"]))
             nbytes = int(leaf.get("nbytes",
                                   int(np.prod(leaf["shape"], dtype=np.int64))
                                   * dt.itemsize))

@@ -31,7 +31,8 @@ def reanalyze_json(path: str, fx_dir: str = FX_DIR):
         if r.get("status") != "ok":
             continue
         fp = os.path.join(fx_dir, cell_tag(r["arch"], r["shape"], None,
-                                           r.get("smoke", False))
+                                           r.get("smoke", False),
+                                           r.get("mesh", "card"))
                           + ".fx.zst")
         if not os.path.exists(fp):
             continue

@@ -72,7 +72,6 @@ def worker_main(args):
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     if args.layers:
         cfg = C.with_layers(cfg, args.layers)
-    init_state, ts = build_train_step(cfg, device=args.device)
     probed = frozenset(p for p in args.probe.split(",") if p) \
         if args.probe and args.probe != "auto" else frozenset()
     segments = _parse_segments(args.segments) if args.segments else None
@@ -82,6 +81,9 @@ def worker_main(args):
                                              init_mode=args.init_mode,
                                              probed=probed,
                                              segments=segments)) as sess:
+        # the record's compute dtype (``launch/train.py --dtype``)
+        cfg = cfg.replace(dtype=sess.arg("dtype", cfg.dtype))
+        init_state, ts = build_train_step(cfg, device=args.device)
         state = init_state(args.seed)
         if sess.parent_run:
             # derived run (lineage): record started from the ancestor's

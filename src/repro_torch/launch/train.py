@@ -56,6 +56,12 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config to this many layers at its "
                          "widths (a large model on one card)")
+    ap.add_argument("--dtype", default=None,
+                    help="compute dtype in place of the config's (e.g. "
+                         "float32), kept with the run for its replay: a "
+                         "record on a mesh whose replay re-executes on one "
+                         "process needs float32 to pass the deferred "
+                         "check")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -128,6 +134,8 @@ def main(argv=None):
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     if args.layers:
         cfg = C.with_layers(cfg, args.layers)
+    if args.dtype:
+        cfg = cfg.replace(dtype=args.dtype)
     if mesh_shape is None:
         init_state, ts = build_train_step(cfg, device=args.device)
         return _record(args, cfg, init_state(args.seed), ts, None, None)
@@ -221,6 +229,11 @@ def _record(args, cfg, state, ts, mesh, group) -> dict:
 
         t0 = time.time()
         step_rows = []
+        # the compute dtype goes with the run: replay re-executes in it
+        dtype = sess.arg("dtype", cfg.dtype)
+        if dtype != cfg.dtype:
+            raise SystemExit(f"the step runs in {cfg.dtype}: set the compute "
+                             f"dtype with --dtype, not FLOR_ARGS")
         steps = sess.arg("steps_per_epoch", args.steps_per_epoch)
         with sess.checkpointing(state=state) as ckpt:
             for epoch in sess.loop("epochs",

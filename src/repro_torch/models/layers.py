@@ -4,10 +4,11 @@ Plain tensor functions mirroring the reference package's layers; the
 compute dtype follows the inputs exactly as there (bf16 activations, f32
 normalization and rope arithmetic).
 
-Under a mesh (``parallel.sharding.use_mesh``) the same functions run on
-local tensors: a caller passes each activation's layout (``have``, a spec)
-and each weight's remaining spec after its FSDP gather (only "model"
-entries are left: ``sharding.model_spec``). A weight sharded on "model"
+The same functions run on local tensors under a mesh
+(``parallel.sharding.use_mesh``) and on whole ones without: a caller
+passes each activation's layout (``have``, a spec; default: whole) and
+each weight's remaining spec after its FSDP gather (only "model" entries
+are left: ``sharding.model_spec``; default: whole). A weight sharded on "model"
 makes its matmul column-parallel (the output stays sharded) or
 row-parallel (partial sums in f32, psummed over "model"); the embedding and
 the logits are vocab-parallel. The reference's ``constrain`` calls sit at
@@ -20,8 +21,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.params import ParamSpec
 from repro_torch.parallel import collectives as col
-from repro_torch.parallel.sharding import (constrain, constrain_spec,
-                                           current_mesh, relayout, spec_axes)
+from repro_torch.parallel.sharding import (constrain_spec, relayout,
+                                           spec_axes)
 
 
 def dense_spec(shape, axes, fan_in=None, scale=1.0):
@@ -85,12 +86,6 @@ def cache_from_spec(spec, device, name: str = ""):
     shape, dtype = spec
     return torch.full(shape, -1 if name == "slot_pos" else 0, dtype=dtype,
                       device=device)
-
-
-def empty_stack(spec, n: int, device):
-    """An empty cache for ``n`` layers of one layer's ``spec`` (zero-size
-    leaves when ``n`` is 0)."""
-    return cache_from_spec(stack_cache_spec(spec, n), device)
 
 
 def write_layer(stack, i, cache):
@@ -204,21 +199,20 @@ def _vocab_axes(w_spec, vdim: int, x_have) -> tuple:
 
 
 def embed_tokens(cfg, table, tokens, compute_dtype, have=None,
-                 table_spec=None):
-    """Token embeddings. Under a mesh ``tokens`` is laid out by ``have``
-    and ``table`` by ``table_spec``, and the result is (local embeddings,
-    their spec): a vocab-sharded table looks up its own rows (the others
-    are zero) and psums over the vocab axes — one nonzero term per token,
-    so the sum is exact."""
+                 table_spec=()):
+    """Token embeddings: (embeddings, their spec). ``tokens`` is laid out
+    by ``have`` (default: whole) and ``table`` by ``table_spec`` (default:
+    whole): a vocab-sharded table looks up its own rows (the others are
+    zero) and psums over the vocab axes — one nonzero term per token, so
+    the sum is exact."""
     # F.embedding, not table[tokens]: the backward of plain indexing adds
     # repeated tokens' rows with atomics on a multithreaded CPU, so a step
     # would not give the same bits twice; embedding's backward sums each
     # row's gradients in one order on the CPU and on the card
     tokens = tokens.long()
-    vax = ()
-    if current_mesh() is not None:
-        vax = _vocab_axes(table_spec, 0, have)
-        table = relayout(table, table_spec, (vax or None, None))
+    have = have or (None, None)
+    vax = _vocab_axes(table_spec, 0, have)
+    table = relayout(table, table_spec, (vax or None, None))
     if vax:
         rows = table.shape[0]
         local = tokens - col.axis_index(vax[0]) * rows
@@ -231,30 +225,28 @@ def embed_tokens(cfg, table, tokens, compute_dtype, have=None,
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=compute_dtype,
                              device=x.device)
-    if current_mesh() is None:
-        return constrain(x, (batch_axis(cfg), None, None))
     return constrain_spec(x, (batch_axis(cfg), None, None),
                           have=(have[0], None, None))
 
 
 def lm_logits(cfg, params, x, padded_vocab: int, have=None, specs=None):
-    """Final logits. Uses tied embedding transpose or a separate unembed.
-    Under a mesh ``x`` is laid out by ``have`` and ``specs`` holds the
-    parameters' specs: returns (local logits, their spec), vocab-parallel
-    where the weight's vocab dim stays sharded."""
+    """Final logits: (logits, their spec). Uses tied embedding transpose or
+    a separate unembed. ``x`` is laid out by ``have`` (default: whole) and
+    ``specs`` holds the parameters' specs (default: whole); the logits are
+    vocab-parallel where the weight's vocab dim stays sharded."""
     tied = cfg.tie_embeddings
     w = params["embed"]["table"] if tied else params["unembed"]["table"]
-    v0, vax = 0, ()
-    if current_mesh() is not None:
-        w_spec = (specs["embed"]["table"] if tied
-                  else specs["unembed"]["table"])
-        vdim = 0 if tied else 1
-        vax = _vocab_axes(w_spec, vdim, have)
-        keep = [None, None]
-        keep[vdim] = vax or None
-        w = relayout(w, w_spec, tuple(keep))
-        if vax:
-            v0 = col.axis_index(vax[0]) * w.shape[vdim]
+    have = have or (None, None, None)
+    v0 = 0
+    w_spec = () if specs is None else \
+        specs["embed" if tied else "unembed"]["table"]
+    vdim = 0 if tied else 1
+    vax = _vocab_axes(w_spec, vdim, have)
+    keep = [None, None]
+    keep[vdim] = vax or None
+    w = relayout(w, w_spec, tuple(keep))
+    if vax:
+        v0 = col.axis_index(vax[0]) * w.shape[vdim]
     if tied:
         logits = torch.einsum("bsd,vd->bsv", x, w.to(x.dtype))
     else:
@@ -267,10 +259,23 @@ def lm_logits(cfg, params, x, padded_vocab: int, have=None, specs=None):
         pad_mask = torch.arange(v0, v0 + logits.shape[-1],
                                 device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad_mask, -1e9)
-    if current_mesh() is None:
-        return constrain(logits, (batch_axis(cfg), None, "act_vocab"))
     return constrain_spec(logits, (batch_axis(cfg), None, "act_vocab"),
                           have=(have[0], None, vax or None))
+
+
+def gathered_logits_weight(cfg, params, specs, have):
+    """(params, specs) with the logits' weight moved once to the layout
+    ``lm_logits`` computes in (FSDP-gathered, its vocab dim left on the
+    axes the batch does not use): a loss over several sequence chunks
+    then gathers it once, and its gradient is reduce-scattered once."""
+    group, vdim = ("embed", 0) if cfg.tie_embeddings else ("unembed", 1)
+    w_spec = specs.get(group, {}).get("table")
+    keep = [None, None]
+    keep[vdim] = _vocab_axes(w_spec, vdim, have) or None
+    keep = tuple(keep)
+    w = relayout(params[group]["table"], w_spec, keep)
+    return ({**params, group: {**params[group], "table": w}},
+            {**specs, group: {**specs.get(group, {}), "table": keep}})
 
 
 def unembed_spec(cfg, padded_vocab: int):
@@ -292,34 +297,48 @@ def mlp_spec(cfg, d_ff: int, d_model=None):
     return spec
 
 
-def row_parallel(eq, h, w, axes, dtype):
+def row_parallel(eq, h, w, axes, dtype, scatter=None):
     """``einsum(eq, h, w)`` contracting a dim both operands hold sharded
     over ``axes``: partial sums in f32, psummed, then ``dtype`` (one
-    rounding, as the unsharded matmul's)."""
+    rounding, as the unsharded matmul's). ``scatter`` = (dim, axes): the
+    sum reduce-scattered over those axes (the same as ``axes``) along
+    ``dim`` instead — each rank keeps its block of the sum."""
     if not axes:
         return torch.einsum(eq, h, w.to(h.dtype))
-    return col.psum(torch.einsum(eq, h.float(), w.float()), axes).to(dtype)
+    part = torch.einsum(eq, h.float(), w.float())
+    if scatter is not None:
+        dim, sax = scatter
+        for a in sax:
+            part = col.psum_scatter(part, a, dim)
+        return part.to(dtype)
+    return col.psum(part, axes).to(dtype)
 
 
 def mlp_apply(cfg, p, x, have=None, specs=None):
-    """The MLP. Under a mesh ``x`` is laid out by ``have`` (replicated over
-    "model" unless the batch uses it) and ``specs`` holds the weights'
-    "model" specs: column-parallel in over "mlp", row-parallel out; the
-    output keeps ``x``'s layout."""
+    """The MLP. ``x`` is laid out by ``have`` (default: whole; replicated
+    over "model" unless the batch or, with sequence parallelism, the
+    sequence uses it) and ``specs`` holds the weights' "model" specs
+    (default: whole): column-parallel in over "mlp", row-parallel out; the
+    output keeps ``x``'s layout (a sequence-sharded input is all-gathered
+    in and its output's partial sums reduce-scattered back)."""
     act = activation(cfg.ffn_activation)
+    have = have or (None, None, None)
+    specs = specs or {}
+    sax = spec_axes(have, 3)[1]
+    if sax:           # sequence parallel: the whole sequence in
+        x = relayout(x, have, (have[0], None, None))
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
     if is_gated(cfg.ffn_activation):
         g = torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))
         h = act(g) * h
     else:
         h = act(h)
-    if current_mesh() is None:
-        h = constrain(h, (batch_axis(cfg), None, "act_mlp"))
-        return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
-    fax = spec_axes(specs["wi"], 2)[1]
+    fax = spec_axes(specs.get("wi"), 2)[1]
     h, hs = constrain_spec(h, (batch_axis(cfg), None, "act_mlp"),
                            have=(have[0], None, fax or None))
-    wo_f = spec_axes(specs["wo"], 2)[0]
+    wo_f = spec_axes(specs.get("wo"), 2)[0]
     h = relayout(h, hs, (hs[0], None, wo_f or None))
-    y = row_parallel("bsf,fd->bsd", h, p["wo"], wo_f, x.dtype)
-    return relayout(y, (hs[0], None, None), have)
+    scatter = (1, sax) if sax and tuple(wo_f) == tuple(sax) else None
+    y = row_parallel("bsf,fd->bsd", h, p["wo"], wo_f, x.dtype,
+                     scatter=scatter)
+    return relayout(y, (hs[0], sax if scatter else None, None), have)

@@ -22,6 +22,22 @@ decode cache, ``{"conv": the last conv_dim - 1 inputs of the causal conv
 (oldest first), "ssm": the scan state after the last token (f32)}``, both
 carried out of the chunk loop as fresh tensors (neither keeps a chunk's
 intermediates alive). A decode step is one O(1) update of that state.
+
+The blocks run on local tensors (whole ones with no mesh installed), the
+channels of d_inner over "model" where they divide it under a mesh (the
+reference's "dinner" / "act_mlp" axes). ``in_proj`` packs several outputs
+side by side, so a contiguous "model" block of its columns straddles their
+split: it is all-gathered and each output takes its own block of columns
+(column-parallel; Mamba1's x and z, Mamba2's z and dt by heads and its
+conv input x|B|C by the reference's contiguous "act_mlp" blocks, which
+the conv's per-channel weights share). Mamba1's ``x_proj`` contracts over
+the channels: row-parallel, psummed before dt / B / C. Mamba2's heads
+need the whole B and C, so its conv output is all-gathered over "model"
+and each rank keeps its heads' x; the gated norm's mean of squares is
+psummed over the heads' ranks. ``out_proj`` is row-parallel. Per-channel
+and per-head weights (``conv_*``, ``dt_bias``, ``A_log``, ``D``,
+``gate_norm``) stay local. Caches take the layouts of
+``mamba*_cache_axes``.
 """
 from __future__ import annotations
 
@@ -29,10 +45,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.attention import linear_index, n_ranks
 from repro_torch.models.layers import (dense_spec, norm_spec, recomputed,
-                                       rms_norm)
+                                       rms_norm, row_parallel)
 from repro_torch.models.params import ParamSpec
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import (constrain_spec, global_shape,
+                                           physical_spec, relayout,
+                                           spec_axes)
 
 
 # ------------------------------------------------------------ helpers -----
@@ -134,14 +154,16 @@ def _mamba1_chunk(xq, dtq, bq, cq, h, A):
     return torch.einsum("bqcn,bqn->bqc", h_t, cq), h_t[:, -1].clone()
 
 
-def _mamba1_inner(cfg, p, x1, z, return_state=False):
-    """Chunked selective scan. x1, z: [B,S,din] (x1 already conv+silu)."""
+def _mamba1_inner(cfg, p, x1, z, return_state=False, dbc=None):
+    """Chunked selective scan. x1, z: [B,S,din] (x1 already conv+silu);
+    ``dbc`` the x_proj output when the caller made it (row-parallel)."""
     s = cfg.ssm
     B, S, din = x1.shape
     N = s.state_dim
     dtr = s.dt_rank or -(-cfg.d_model // 16)
 
-    dbc = torch.einsum("bsc,cr->bsr", x1, p["x_proj"].to(x1.dtype))
+    if dbc is None:
+        dbc = torch.einsum("bsc,cr->bsr", x1, p["x_proj"].to(x1.dtype))
     dt = F.softplus(
         torch.einsum("bsr,rc->bsc", dbc[..., :dtr],
                      p["dt_proj"].to(x1.dtype)).float()
@@ -174,24 +196,13 @@ def _mamba1_inner(cfg, p, x1, z, return_state=False):
     return y.to(x1.dtype)
 
 
-def mamba1_forward(cfg, p, x, return_cache=False):
+def mamba1_forward(cfg, p, x, return_cache=False, have=None, specs=None):
     """Full-sequence Mamba1 block (norm -> in_proj -> conv -> scan ->
     out_proj); the residual add is the caller's. ``return_cache`` also
-    returns the decode cache after the last token."""
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
-    xz = torch.einsum("bsd,dc->bsc", h, p["in_proj"].to(x.dtype))
-    din = xz.shape[-1] // 2
-    pre_conv, z = xz[..., :din], xz[..., din:]
-    # the reference's constraint: under a mesh it raises (next slice)
-    pre_conv = constrain(pre_conv, ("batch", None, "act_mlp"))
-    x1 = F.silu(_causal_conv(pre_conv, p["conv_w"], p["conv_b"]))
-    if return_cache:
-        y, hst = _mamba1_inner(cfg, p, x1, z, return_state=True)
-        out = torch.einsum("bsc,cd->bsd", y, p["out_proj"].to(x.dtype))
-        return out, {"conv": _conv_tail(pre_conv, cfg.ssm.conv_dim),
-                     "ssm": hst}
-    y = _mamba1_inner(cfg, p, x1, z)
-    return torch.einsum("bsc,cd->bsd", y, p["out_proj"].to(x.dtype))
+    returns (the decode cache after the last token, its specs). ``x`` is
+    laid out by ``have`` and ``specs`` holds the weights' "model" specs
+    (both default to whole)."""
+    return _forward(cfg, p, x, return_cache, have, specs, 1)
 
 
 def mamba1_cache_spec(cfg, batch: int, dtype):
@@ -206,35 +217,11 @@ def mamba1_cache_axes():
     return {"conv": ("batch", None, "dinner"), "ssm": ("batch", "dinner", None)}
 
 
-def mamba1_decode(cfg, p, x, cache):
+def mamba1_decode(cfg, p, x, cache, have=None, specs=None, cspec=None):
     """x [B,1,d] -> (out [B,1,d], cache): one O(1) state update, written
-    into ``cache`` in place."""
-    s = cfg.ssm
-    N = s.state_dim
-    dtr = s.dt_rank or -(-cfg.d_model // 16)
-    h = rms_norm(x, p["norm"], cfg.norm_eps)[:, 0]               # [B,d]
-    xz = torch.einsum("bd,dc->bc", h, p["in_proj"].to(x.dtype))
-    din = xz.shape[-1] // 2
-    x1, z = xz[..., :din], xz[..., din:]
-    x1, conv_state = _conv_step(x1, cache["conv"].to(x1.dtype),
-                                p["conv_w"], p["conv_b"])
-    x1 = F.silu(x1)
-    dbc = torch.einsum("bc,cr->br", x1, p["x_proj"].to(x1.dtype))
-    dt = F.softplus(
-        torch.einsum("br,rc->bc", dbc[..., :dtr],
-                     p["dt_proj"].to(x1.dtype)).float()
-        + p["dt_bias"].float())                                  # [B,din]
-    Bc = dbc[..., dtr:dtr + N].float()
-    Cc = dbc[..., dtr + N:].float()
-    A = -torch.exp(p["A_log"].float())
-    hst = torch.exp(dt[..., None] * A) * cache["ssm"] \
-        + (dt * x1.float())[..., None] * Bc[:, None, :]
-    y = torch.einsum("bcn,bn->bc", hst, Cc) + x1.float() * p["D"].float()
-    y = y * F.silu(z.float())
-    out = torch.einsum("bc,cd->bd", y.to(x.dtype), p["out_proj"].to(x.dtype))
-    cache["conv"].copy_(conv_state)
-    cache["ssm"].copy_(hst)
-    return out[:, None], cache
+    into ``cache`` in place (this rank's slice of it, laid out by
+    ``cspec``; default: whole)."""
+    return _decode(cfg, p, x, cache, have, specs, cspec, 1)
 
 
 # ------------------------------------------------------------ Mamba 2 -----
@@ -256,18 +243,6 @@ def mamba2_spec(cfg):
         "gate_norm": ParamSpec((din,), ("dinner",), init="ones"),
         "out_proj": dense_spec((din, d), ("dinner", "embed"), fan_in=din),
     }
-
-
-def _mamba2_split(cfg, zxbcdt):
-    s = cfg.ssm
-    din = s.expand * cfg.d_model
-    N = s.state_dim
-    nh = din // s.head_dim
-    z = zxbcdt[..., :din]
-    xbc = zxbcdt[..., din:din + din + 2 * N]
-    dt = zxbcdt[..., din + din + 2 * N:]
-    assert dt.shape[-1] == nh
-    return z, xbc, dt
 
 
 def _ssd_chunk(xh, bq, cq, dtq, A, h_prev):
@@ -301,12 +276,15 @@ def _ssd_chunk(xh, bq, cq, dtq, A, h_prev):
     return y_intra + y_inter, h_next
 
 
-def _mamba2_inner(cfg, p, xbc, z, dt_raw, return_state=False):
+def _mamba2_inner(cfg, p, xbc, z, dt_raw, return_state=False, red=()):
+    """SSD over the heads of ``dt_raw`` (all of them, or a rank's: then
+    ``red`` names the axes the gated norm's mean of squares is summed
+    over)."""
     s = cfg.ssm
-    din = s.expand * cfg.d_model
     N = s.state_dim
-    nh = din // s.head_dim
     hp = s.head_dim
+    nh = dt_raw.shape[-1]
+    din = nh * hp
     B, S, _ = xbc.shape
 
     x = xbc[..., :din]
@@ -334,30 +312,16 @@ def _mamba2_inner(cfg, p, xbc, z, dt_raw, return_state=False):
     y = y + xh[:, :S] * p["D"].float()[:, None]
     y = y.reshape(B, S, din)
     y = y * F.silu(z.float())
-    y = rms_norm(y, p["gate_norm"], cfg.norm_eps, dtype=torch.float32)
+    y = _gated_norm(cfg, y, p["gate_norm"], red)
     if return_state:
         return y, h
     return y
 
 
-def mamba2_forward(cfg, p, x, return_cache=False):
+def mamba2_forward(cfg, p, x, return_cache=False, have=None, specs=None):
     """Full-sequence Mamba2 block; the residual add is the caller's.
-    ``return_cache`` also returns the decode cache after the last token."""
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
-    zxbcdt = torch.einsum("bsd,dc->bsc", h, p["in_proj"].to(x.dtype))
-    z, pre_conv, dt = _mamba2_split(cfg, zxbcdt)
-    # the reference's constraint: under a mesh it raises (next slice)
-    pre_conv = constrain(pre_conv, ("batch", None, "act_mlp"))
-    xbc = F.silu(_causal_conv(pre_conv, p["conv_w"], p["conv_b"]))
-    if return_cache:
-        y, hst = _mamba2_inner(cfg, p, xbc, z, dt, return_state=True)
-        out = torch.einsum("bsc,cd->bsd", y.to(x.dtype),
-                           p["out_proj"].to(x.dtype))
-        return out, {"conv": _conv_tail(pre_conv, cfg.ssm.conv_dim),
-                     "ssm": hst}
-    y = _mamba2_inner(cfg, p, xbc, z, dt)
-    return torch.einsum("bsc,cd->bsd", y.to(x.dtype),
-                        p["out_proj"].to(x.dtype))
+    ``return_cache``, ``have``, ``specs``: as ``mamba1_forward``."""
+    return _forward(cfg, p, x, return_cache, have, specs, 2)
 
 
 def mamba2_cache_spec(cfg, batch: int, dtype):
@@ -376,31 +340,200 @@ def mamba2_cache_axes():
             "ssm": ("batch", "act_heads", None, None)}
 
 
-def mamba2_decode(cfg, p, x, cache):
+def mamba2_decode(cfg, p, x, cache, have=None, specs=None, cspec=None):
     """x [B,1,d] -> (out [B,1,d], cache): one O(1) SSD state update,
-    written into ``cache`` in place."""
+    written into ``cache`` in place (as ``mamba1_decode``)."""
+    return _decode(cfg, p, x, cache, have, specs, cspec, 2)
+
+
+def _gated_norm(cfg, y, gamma, red=()):
+    """Mamba2's gated RMSNorm over d_inner in f32; with ``red`` the
+    channels are a rank's block and the sum of squares is psummed over
+    those axes."""
+    if not red:
+        return rms_norm(y, gamma, cfg.norm_eps, dtype=torch.float32)
+    n = y.shape[-1]
+    for a in red:
+        n *= col.axis_size(a)
+    var = col.psum(y.float().square().sum(dim=-1, keepdim=True), red) / n
+    return y.float() * torch.rsqrt(var + cfg.norm_eps) * gamma.float()
+
+
+# ------------------------------------------------------ the one body -----
+
+def _block(axes, n: int):
+    """(start, length) of this rank's block of ``n`` split over ``axes``."""
+    size = n // n_ranks(axes)
+    return linear_index(axes) * size, size
+
+
+def _layouts(cfg, version, x_shape, have):
+    """(channel axes of the conv input, heads axes): what the reference's
+    "act_mlp" constraint and the cache's "act_heads" / "dinner" axes
+    resolve to at the global shapes."""
+    s = cfg.ssm
+    din = s.expand * cfg.d_model
+    B, S = global_shape(x_shape, have)[:2]
+    width = din if version == 1 else din + 2 * s.state_dim
+    cax = spec_axes(physical_spec(("batch", None, "act_mlp"),
+                                  (B, S, width)), 3)[2]
+    if version == 1:
+        return cax, cax
+    nh = din // s.head_dim
+    hax = spec_axes(physical_spec(("batch", "act_heads", None, None),
+                                  (B, nh, s.head_dim, s.state_dim)), 4)[1]
+    return cax, hax
+
+
+def _local_weights(cfg, p, specs, version, cax, hax):
+    """The block's weights in the compute layout: ``in_proj`` gathered and
+    cut into this rank's columns of each packed output, every per-channel
+    (per-head) weight moved to the channel (head) layout."""
     s = cfg.ssm
     din = s.expand * cfg.d_model
     N = s.state_dim
+    w_in = relayout(p["in_proj"], specs.get("in_proj"), (None, None))
+    out = {"norm": p["norm"]}
+
+    def lay(name, dim, axes):
+        w = p[name]
+        want = [None] * w.ndim
+        want[dim] = axes or None
+        out[name] = relayout(w, specs.get(name), tuple(want))
+
+    if version == 1:
+        c0, n = _block(cax, din)
+        out["in_x"] = w_in[:, c0:c0 + n]
+        out["in_z"] = w_in[:, din + c0:din + c0 + n]
+        for name, dim in (("conv_w", 1), ("conv_b", 0), ("x_proj", 0),
+                          ("dt_proj", 1), ("dt_bias", 0), ("A_log", 0),
+                          ("D", 0), ("out_proj", 0)):
+            lay(name, dim, cax)
+        return out
     nh = din // s.head_dim
-    h = rms_norm(x, p["norm"], cfg.norm_eps)[:, 0]
-    zxbcdt = torch.einsum("bd,dc->bc", h, p["in_proj"].to(x.dtype))
-    z, xbc, dt_raw = _mamba2_split(cfg, zxbcdt)
-    xbc, conv_state = _conv_step(xbc, cache["conv"].to(xbc.dtype),
-                                 p["conv_w"], p["conv_b"])
-    xbc = F.silu(xbc)
-    x1 = xbc[..., :din].float().reshape(-1, nh, s.head_dim)
-    Bc = xbc[..., din:din + N].float()
-    Cc = xbc[..., din + N:].float()
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())       # [B,nh]
-    A = -torch.exp(p["A_log"].float())
-    hst = torch.exp(dt * A)[:, :, None, None] * cache["ssm"] \
-        + torch.einsum("bn,bhp,bh->bhpn", Bc, x1, dt)
-    y = torch.einsum("bhpn,bn->bhp", hst, Cc) \
-        + x1 * p["D"].float()[:, None]
-    y = y.reshape(-1, din) * F.silu(z.float())
-    y = rms_norm(y, p["gate_norm"], cfg.norm_eps, dtype=torch.float32)
-    out = torch.einsum("bc,cd->bd", y.to(x.dtype), p["out_proj"].to(x.dtype))
+    h0, nhl = _block(hax, nh)
+    c0, n = h0 * s.head_dim, nhl * s.head_dim
+    b0, nb = _block(cax, din + 2 * N)
+    out["in_z"] = w_in[:, c0:c0 + n]
+    out["in_xbc"] = w_in[:, din + b0:din + b0 + nb]
+    out["in_dt"] = w_in[:, 2 * din + 2 * N + h0:2 * din + 2 * N + h0 + nhl]
+    for name, dim, axes in (("conv_w", 1, cax), ("conv_b", 0, cax),
+                            ("A_log", 0, hax), ("D", 0, hax),
+                            ("dt_bias", 0, hax), ("gate_norm", 0, hax),
+                            ("out_proj", 0, hax)):
+        lay(name, dim, axes)
+    out["x_cols"] = (c0, n)
+    return out
+
+
+def _split_heads(cfg, xbc, c0, n):
+    """This rank's heads' x and the whole B, C of a gathered conv output
+    (the output itself where the rank holds every head)."""
+    din = cfg.ssm.expand * cfg.d_model
+    N = cfg.ssm.state_dim
+    if c0 == 0 and n == din:
+        return xbc
+    return torch.cat([xbc[..., c0:c0 + n], xbc[..., din:din + 2 * N]],
+                     dim=-1)
+
+
+def _forward(cfg, p, x, return_cache, have, specs, version):
+    """A Mamba block's forward on the local tensors (whole without a
+    mesh)."""
+    have, specs = have or (None, None, None), specs or {}
+    xb = have[0]
+    rows = (xb, None, None)
+    x = relayout(x, have, rows)                  # the whole sequence
+    cax, hax = _layouts(cfg, version, x.shape, rows)
+    w = _local_weights(cfg, p, specs, version, cax, hax)
+    h = rms_norm(x, w["norm"], cfg.norm_eps)
+    z = torch.einsum("bsd,dc->bsc", h, w["in_z"].to(x.dtype))
+    pre = torch.einsum("bsd,dc->bsc", h, w["in_x" if version == 1
+                                           else "in_xbc"].to(x.dtype))
+    pre, ps = constrain_spec(pre, ("batch", None, "act_mlp"),
+                             have=(xb, None, cax or None))
+    conv = F.silu(_causal_conv(pre, w["conv_w"], w["conv_b"]))
+    if version == 1:
+        dbc = row_parallel("bsc,cr->bsr", conv, w["x_proj"], cax,
+                           conv.dtype)
+        res = _mamba1_inner(cfg, w, conv, z, return_state=return_cache,
+                            dbc=dbc)
+        red = cax
+    else:
+        dt_raw = torch.einsum("bsd,dc->bsc", h, w["in_dt"].to(x.dtype))
+        xbc = relayout(conv, ps, rows)
+        xbc = _split_heads(cfg, xbc, *w["x_cols"])
+        res = _mamba2_inner(cfg, w, xbc, z, dt_raw,
+                            return_state=return_cache, red=hax)
+        red = hax
+    y, hst = res if return_cache else (res, None)
+    out = row_parallel("bsc,cd->bsd", y.to(x.dtype), w["out_proj"], red,
+                       x.dtype)
+    out = relayout(out, rows, have)
+    if not return_cache:
+        return out
+    tail = _conv_tail(pre, cfg.ssm.conv_dim)
+    ssm_have = (xb, red or None, None) if version == 1 else \
+        (xb, hax or None, None, None)
+    return out, ({"conv": tail, "ssm": hst},
+                 {"conv": (xb, None, cax or None), "ssm": ssm_have})
+
+
+def _decode(cfg, p, x, cache, have, specs, cspec, version):
+    """One token on the local tensors: the caches' layouts (``cspec``)
+    fix the channel and head blocks."""
+    have, specs, cspec = have or (None, None, None), specs or {}, cspec or {}
+    s = cfg.ssm
+    N = s.state_dim
+    cb, _, cax = spec_axes(cspec.get("conv"), 3)
+    hax = spec_axes(cspec.get("ssm"), cache["ssm"].ndim)[1]
+    rows = (cb or None, None, None)
+    xb = have[0]
+    x = relayout(x, have, rows)
+    w = _local_weights(cfg, p, specs, version, cax, hax)
+    h = rms_norm(x, w["norm"], cfg.norm_eps)[:, 0]
+    z = torch.einsum("bd,dc->bc", h, w["in_z"].to(x.dtype))
+    pre = torch.einsum("bd,dc->bc", h, w["in_x" if version == 1
+                                         else "in_xbc"].to(x.dtype))
+    conv, conv_state = _conv_step(pre, cache["conv"].to(pre.dtype),
+                                  w["conv_w"], w["conv_b"])
+    conv = F.silu(conv)
+    if version == 1:
+        dtr = s.dt_rank or -(-cfg.d_model // 16)
+        dbc = row_parallel("bc,cr->br", conv, w["x_proj"], cax, conv.dtype)
+        dt = F.softplus(
+            torch.einsum("br,rc->bc", dbc[..., :dtr],
+                         w["dt_proj"].to(conv.dtype)).float()
+            + w["dt_bias"].float())
+        Bc = dbc[..., dtr:dtr + N].float()
+        Cc = dbc[..., dtr + N:].float()
+        A = -torch.exp(w["A_log"].float())
+        hst = torch.exp(dt[..., None] * A) * cache["ssm"] \
+            + (dt * conv.float())[..., None] * Bc[:, None, :]
+        y = torch.einsum("bcn,bn->bc", hst, Cc) + conv.float() * \
+            w["D"].float()
+        y = y * F.silu(z.float())
+        red = cax
+    else:
+        xbc = relayout(conv, (cb or None, cax or None), (cb or None, None))
+        c0, n = w["x_cols"]
+        nhl = n // s.head_dim
+        x1 = xbc[..., c0:c0 + n].float().reshape(-1, nhl, s.head_dim)
+        din = s.expand * cfg.d_model
+        Bc = xbc[..., din:din + N].float()
+        Cc = xbc[..., din + N:din + 2 * N].float()
+        dt_raw = torch.einsum("bd,dc->bc", h, w["in_dt"].to(x.dtype))
+        dt = F.softplus(dt_raw.float() + w["dt_bias"].float())
+        A = -torch.exp(w["A_log"].float())
+        hst = torch.exp(dt * A)[:, :, None, None] * cache["ssm"] \
+            + torch.einsum("bn,bhp,bh->bhpn", Bc, x1, dt)
+        y = torch.einsum("bhpn,bn->bhp", hst, Cc) \
+            + x1 * w["D"].float()[:, None]
+        y = y.reshape(-1, n) * F.silu(z.float())
+        y = _gated_norm(cfg, y, w["gate_norm"], hax)
+        red = hax
+    out = row_parallel("bc,cd->bd", y.to(x.dtype), w["out_proj"], red,
+                       x.dtype)
     cache["conv"].copy_(conv_state)
     cache["ssm"].copy_(hst)
-    return out[:, None], cache
+    return relayout(out[:, None], rows, (xb, None, None)), cache

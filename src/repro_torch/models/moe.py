@@ -177,6 +177,11 @@ def _sharded_moe(cfg, p, x, have, specs):
     mo = cfg.moe
     mesh = current_mesh()
     ms = mesh_axis_sizes(mesh)["model"]
+    if spec_axes(have, 3)[1]:          # sequence parallelism: whole rows
+        rows = (have[0], None, None)
+        y, aux, drop = _sharded_moe(cfg, p, relayout(x, have, rows), rows,
+                                    specs)
+        return relayout(y, rows, have), aux, drop
     B, S, d = x.shape
     x_have = (spec_axes(have, 1)[0] or None, None)
     nb = 1

@@ -15,6 +15,16 @@ layer, zero-size leaves for a stack of no layers); it returns the last
 position's logits only. ``lm_decode`` copies the stacks once and writes
 the new token into the copy layer by layer, so the caches it was given are
 left as they were.
+
+One walk serves every layout (explicit SPMD): it runs on local shards,
+each layer's weights FSDP-gathered over every axis but "model" as it is
+used (``use_params``), the blocks of ``attention`` / ``mla`` / ``mamba`` /
+``moe`` / ``layers`` on their local tensors with each activation's layout
+declared, a vlm's embedding prefix cut to the local rows, the residual's
+sequence over "model" with ``seq_shard``; caches are local slices laid out
+by the reference's cache axes (``cspecs``), logits come back replicated.
+With no mesh installed every spec resolves to replication, each relayout
+and collective is the identity, and the same walk runs on whole tensors.
 """
 from __future__ import annotations
 
@@ -23,17 +33,18 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba, mla
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (batch_axis, embed_tokens,
-                                       embedding_spec, empty_stack,
-                                       lm_logits, mlp_apply, mlp_spec,
-                                       norm_spec, padded_vocab_size,
-                                       rms_norm, rope_tables,
-                                       stack_cache_spec, unembed_spec,
+from repro_torch.models.layers import (batch_axis, cache_from_spec,
+                                       embed_tokens, gathered_logits_weight,
+                                       embedding_spec, lm_logits, mlp_apply,
+                                       mlp_spec, norm_spec,
+                                       padded_vocab_size, rms_norm,
+                                       rope_tables, unembed_spec,
                                        write_layer)
 from repro_torch.models.params import _map_specs, stack_spec
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.sharding import (constrain, constrain_spec,
-                                           current_mesh, model_spec,
+                                           current_mesh, global_shape,
+                                           local_shape, model_spec,
                                            physical_spec, relayout,
                                            spec_axes)
 
@@ -69,7 +80,7 @@ def moe_block_spec(cfg):
 
 def _attention(cfg, p, x, window, rope, have=None, specs=None):
     if cfg.mla:
-        return mla.mla_attention(cfg, p, x, rope)
+        return mla.mla_attention(cfg, p, x, rope, have=have, specs=specs)
     return attn.self_attention(cfg, p, x, causal=True, window=window,
                                rope=rope, have=have, specs=specs)
 
@@ -90,28 +101,30 @@ def res_axes(cfg):
     return (batch_axis(cfg), "seq_mp" if cfg.seq_shard else None, None)
 
 
+def _ffn(cfg, p, h, have, specs):
+    """A block's MLP, or its MoE layer: (y, the MoE metrics or None)."""
+    if "moe" in p:
+        return moe_mod.moe_apply(cfg, p["moe"], h, have, specs.get("moe"))
+    return mlp_apply(cfg, p["mlp"], h, have, specs.get("mlp")), None
+
+
+def block(cfg, p, x, window=None, rope=None, have=None, specs=None):
+    """One attention + MLP (or MoE) block: (x, the MoE metrics or None).
+    ``x`` is the local residual laid out by ``have``, ``p`` a layer's
+    gathered weights and ``specs`` their "model" specs (both default to
+    whole)."""
+    have, specs = have or (None, None, None), specs or {}
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + _attention(cfg, p["attn"], h, window, rope, have,
+                       specs.get("attn"))
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, metrics = _ffn(cfg, p, h, have, specs)
+    return constrain(x + y, res_axes(cfg), have), metrics
+
+
 def dense_block(cfg, p, x, window=None, rope=None, have=None, specs=None):
-    """One attention + MLP block. Under a mesh ``x`` is the local residual
-    laid out by ``have``, ``p`` a layer's gathered weights and ``specs``
-    their "model" specs."""
-    specs = specs or {}
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _attention(cfg, p["attn"], h, window, rope, have,
-                       specs.get("attn"))
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_apply(cfg, p["mlp"], h, have, specs.get("mlp"))
-    return constrain(x, res_axes(cfg), have)
-
-
-def moe_block(cfg, p, x, window=None, rope=None, have=None, specs=None):
-    specs = specs or {}
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _attention(cfg, p["attn"], h, window, rope, have,
-                       specs.get("attn"))
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y, metrics = moe_mod.moe_apply(cfg, p["moe"], h, have, specs.get("moe"))
-    x = x + y
-    return constrain(x, res_axes(cfg), have), metrics
+    """One attention + MLP block (``block`` without metrics)."""
+    return block(cfg, p, x, window, rope, have, specs)[0]
 
 
 def _layer(tree, i: int):
@@ -158,29 +171,46 @@ def _hybrid_shape(cfg):
 
 # ------------------------------------------------------------ forward -----
 
-def _embed_inputs(cfg, params, tokens, embeds):
-    """The input sequence in the compute dtype: the vlm's embedding prefix
-    (if any) followed by the token embeddings."""
-    compute_dtype = getattr(torch, cfg.dtype)
-    parts = []
+def _inputs(cfg, params, specs, tokens, tok_have=None, embeds=None,
+            emb_have=None):
+    """The input sequence on local rows, in the compute dtype: the vlm's
+    embedding prefix (if any, laid out by ``emb_have``) followed by the
+    embeddings of ``tokens`` (laid out by ``tok_have``; None: whole), the
+    residual's layout (``res_axes``) applied. Returns (the local tokens,
+    x, its spec)."""
+    tokens, ts = constrain_spec(tokens, (batch_axis(cfg), None),
+                                have=tok_have or (None, None))
+    x, xs = embed_tokens(cfg, params["embed"]["table"], tokens,
+                         getattr(torch, cfg.dtype), have=ts,
+                         table_spec=specs["embed"]["table"])
     if embeds is not None:
-        parts.append(embeds.to(compute_dtype))
-    if tokens is not None:
-        parts.append(embed_tokens(cfg, params["embed"]["table"], tokens,
-                                  compute_dtype))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        e = relayout(embeds.to(x.dtype), emb_have or (None, None, None), xs)
+        x = torch.cat([e, x], dim=1)
+    x, xs = constrain_spec(x, res_axes(cfg), have=xs)
+    return tokens, x, xs
 
 
-# --------------------------------------------------------- under a mesh --
+def _embed_inputs(cfg, params, tokens, embeds=None):
+    """The whole input sequence (no mesh): ``_inputs``' x."""
+    return _inputs(cfg, params, {"embed": {"table": ()}}, tokens,
+                   embeds=embeds)[1]
+
+
+# ------------------------------------------------------ the one walk -----
 
 def mesh_param_specs(cfg, mesh=None) -> dict:
     """Each parameter's spec on ``mesh`` (the installed one by default),
     resolved from its logical axes at its global shape — the specs
-    ``launch.specs.state_shardings`` lays the state out by."""
+    ``launch.specs.state_shardings`` lays the state out by; with no mesh,
+    replication (``()``) everywhere."""
     mesh = mesh or current_mesh()
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import encdec_param_spec
+        spec = encdec_param_spec(cfg)
+    else:
+        spec = lm_param_spec(cfg)
     return _map_specs(lambda _, sp: tuple(physical_spec(sp.axes, sp.shape,
-                                                        mesh)),
-                      lm_param_spec(cfg))
+                                                        mesh)), spec)
 
 
 def use_params(tree, specs, i=None):
@@ -198,99 +228,83 @@ def use_params(tree, specs, i=None):
     return relayout(tree, specs, keep), keep
 
 
-def check_sharded(cfg, embeds=None):
-    """Raise for what runs sharded only in the next slice of the port."""
-    if cfg.family not in ("dense", "moe") or cfg.mla or cfg.seq_shard \
-            or embeds is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sharded compute covers the dense and MoE "
-            f"families with GQA attention; MLA, SSM, hybrid, encoder-"
-            f"decoder, vision prefixes and sequence parallelism run under "
-            f"a mesh in the next slice of the port (ROADMAP queue 1, "
-            f"item 3)")
+def sub_stack(tree, specs, j):
+    """Entry ``j`` of the leading axis of a stacked tree of local shards
+    and its specs, nothing gathered (a hybrid's group of layers)."""
+    if isinstance(tree, dict):
+        pairs = {k: sub_stack(tree[k], specs[k], j) for k in tree}
+        return ({k: v[0] for k, v in pairs.items()},
+                {k: v[1] for k, v in pairs.items()})
+    return tree[j], specs[1:]
 
 
-def _sharded_forward(cfg, params, specs, tokens, tok_have):
-    """``lm_forward`` on local shards: returns (hidden, metrics, its
-    spec)."""
-    x, xs = embed_tokens(cfg, params["embed"]["table"], tokens,
-                         getattr(torch, cfg.dtype), have=tok_have,
-                         table_spec=specs["embed"]["table"])
-    x, xs = constrain_spec(x, res_axes(cfg), have=xs)
-    rope = rope_tables_for(cfg, x.shape[1], x.device)
-    window = cfg.sliding_window
-    metrics = {}
-    aux, drop = [], []
-    for name in ("dense_layers", "layers"):
-        if name not in params:
-            continue
-        moe = cfg.family == "moe" and name == "layers"
-        for i in range(_depth(params[name])):
-            lyr, lsp = use_params(params[name], specs[name], i)
-            if moe:
-                x, m = moe_block(cfg, lyr, x, window, rope, xs, lsp)
-                aux.append(m["moe_aux"])
-                drop.append(m["moe_dropped"])
-            else:
-                x = dense_block(cfg, lyr, x, window, rope, xs, lsp)
-    if aux:
-        metrics = {"moe_aux": torch.stack(aux).mean(),
-                   "moe_dropped": torch.stack(drop).mean()}
-    ln_f, _ = use_params(params["ln_f"], specs["ln_f"])
-    return rms_norm(x, ln_f, cfg.norm_eps), metrics, xs
-
-
-def lm_forward(cfg, params, tokens=None, embeds=None):
-    """Returns (final hidden states [B, S_total, d], metrics)."""
-    if current_mesh() is not None:
-        check_sharded(cfg, embeds)
-        tokens, ts = constrain_spec(tokens, (batch_axis(cfg), None),
-                                    have=(None, None))
-        hidden, metrics, _ = _sharded_forward(
-            cfg, params, mesh_param_specs(cfg), tokens, ts)
-        return hidden, metrics
-    x = _embed_inputs(cfg, params, tokens, embeds)
-    x = constrain(x, res_axes(cfg))
-    rope = rope_tables_for(cfg, x.shape[1], x.device)
-    window = cfg.sliding_window
+def _blocks(cfg, params, specs):
+    """Every block of the stack in order, each gathered as it comes:
+    (kind — "attn" for a dense / MoE block or the hybrid's shared
+    attention, "mamba1" / "mamba2" —, its weights, their "model" specs,
+    the path of its layer in the caches)."""
     fam = cfg.family
-    metrics = {}
-    if fam == "moe":
-        nd = cfg.moe.first_dense_layers
-        for i in range(nd):
-            x = dense_block(cfg, _layer(params["dense_layers"], i), x,
-                            window, rope)
-        aux, drop = [], []
-        for i in range(cfg.num_layers - nd):
-            x, m = moe_block(cfg, _layer(params["layers"], i), x, window,
-                             rope)
-            aux.append(m["moe_aux"])
-            drop.append(m["moe_dropped"])
-        # with no MoE layer (depth cut to the leading dense layers) there is
-        # no router loss to add; the reference's mean over the empty stack
-        # is NaN, and so is its loss (ROADMAP queue 3)
-        if aux:
-            metrics = {"moe_aux": torch.stack(aux).mean(),
-                       "moe_dropped": torch.stack(drop).mean()}
+    if fam in ("dense", "vlm", "moe"):
+        for name in ("dense_layers", "layers"):
+            for i in range(_depth(params[name]) if name in params else 0):
+                yield ("attn",) + use_params(params[name], specs[name], i) \
+                    + ((name, i),)
     elif fam == "ssm":
-        fwd = mamba.mamba1_forward if cfg.ssm.version == 1 \
-            else mamba.mamba2_forward
-        for i in range(cfg.num_layers):
-            x = x + fwd(cfg, _layer(params["layers"], i), x)
+        kind = f"mamba{cfg.ssm.version}"
+        for i in range(_depth(params["layers"])):
+            yield (kind,) + use_params(params["layers"], specs["layers"], i) \
+                + (("layers", i),)
     elif fam == "hybrid":
         g, per, tail = _hybrid_shape(cfg)
+        shared, ssp = use_params(params["shared_attn"], specs["shared_attn"])
         for j in range(g):
-            group = _layer(params["groups"], j)
+            grp, gsp = sub_stack(params["groups"], specs["groups"], j)
             for i in range(per):
-                x = x + mamba.mamba2_forward(cfg, _layer(group, i), x)
-            x = dense_block(cfg, params["shared_attn"], x, window, rope)
+                yield ("mamba2",) + use_params(grp, gsp, i) \
+                    + (("groups", j, i),)
+            yield "attn", shared, ssp, ("shared_attn", j)
         for i in range(tail):
-            x = x + mamba.mamba2_forward(cfg, _layer(params["tail"], i), x)
+            yield ("mamba2",) + use_params(params["tail"], specs["tail"], i) \
+                + (("tail", i),)
     else:
-        for i in range(cfg.num_layers):
-            x = dense_block(cfg, _layer(params["layers"], i), x, window,
-                            rope)
-    return rms_norm(x, params["ln_f"], cfg.norm_eps), metrics
+        raise ValueError(fam)
+
+
+def _mamba(kind):
+    return {"mamba1": (mamba.mamba1_forward, mamba.mamba1_decode),
+            "mamba2": (mamba.mamba2_forward, mamba.mamba2_decode)}[kind]
+
+
+def _forward(cfg, params, specs, x, xs):
+    """Every block and the final norm over the local residual ``x`` (laid
+    out by ``xs``): returns (hidden, metrics)."""
+    # the whole sequence's tables: attention gathers a sharded sequence
+    rope = rope_tables_for(cfg, global_shape(x.shape, xs)[1], x.device)
+    aux, drop = [], []
+    for kind, p, sp, _ in _blocks(cfg, params, specs):
+        if kind != "attn":
+            x = x + _mamba(kind)[0](cfg, p, x, have=xs, specs=sp)
+            continue
+        x, m = block(cfg, p, x, cfg.sliding_window, rope, xs, sp)
+        if m is not None:
+            aux.append(m["moe_aux"])
+            drop.append(m["moe_dropped"])
+    # with no MoE layer (depth cut to the leading dense layers) there is
+    # no router loss to add; the reference's mean over the empty stack
+    # is NaN, and so is its loss (ROADMAP queue 3)
+    metrics = {"moe_aux": torch.stack(aux).mean(),
+               "moe_dropped": torch.stack(drop).mean()} if aux else {}
+    ln_f, _ = use_params(params["ln_f"], specs["ln_f"])
+    return rms_norm(x, ln_f, cfg.norm_eps), metrics
+
+
+def lm_forward(cfg, params, tokens, embeds=None):
+    """Returns (final hidden states [B, S_total, d], metrics); under a
+    mesh ``params`` are local shards and the hidden states this rank's
+    rows of the residual's layout."""
+    specs = mesh_param_specs(cfg)
+    _, x, xs = _inputs(cfg, params, specs, tokens, embeds=embeds)
+    return _forward(cfg, params, specs, x, xs)
 
 
 # --------------------------------------------------------------- loss -----
@@ -318,69 +332,64 @@ def _vocab_parallel_lse_gold(logits, y, vax):
 
 def ce_loss(cfg, params, hidden, labels, mask=None, have=None, specs=None):
     """Chunked cross-entropy. hidden [B,T,d] aligned with labels [B,T].
-    Returns (mean nll, {"ce", "z_loss"}), all f32. Under a mesh ``hidden``
-    and ``labels`` are local, laid out by ``have`` (batch), ``params`` the
-    local shards laid out by ``specs``: the logits are vocab-parallel and
-    the sums are psummed over the batch axes, so the loss is the global
-    batch's mean on every rank."""
+    Returns (mean nll, {"ce", "z_loss"}), all f32. ``hidden`` and
+    ``labels`` are local rows laid out by ``have`` (batch), ``params`` the
+    local shards laid out by ``specs`` (both default to whole): the
+    logits are vocab-parallel where the weight's vocab dim stays sharded
+    and the sums are psummed over the batch axes, so the loss is the
+    global batch's mean on every rank."""
     pv = padded_vocab(cfg)
     B, T, _ = hidden.shape
+    have = have or (None, None, None)
     if mask is None:
         mask = torch.ones((B, T), dtype=torch.float32, device=hidden.device)
     C = _loss_chunk_size(cfg, T)
+    params, specs = gathered_logits_weight(cfg, params, specs or {}, have)
     tot = hidden.new_zeros((), dtype=torch.float32)
     cnt = hidden.new_zeros((), dtype=torch.float32)
     zsq = hidden.new_zeros((), dtype=torch.float32)
     for s in range(0, T, C):
         y = labels[:, s:s + C].long()
-        if have is None:
-            logits = lm_logits(cfg, params, hidden[:, s:s + C], pv).float()
+        logits, ls = lm_logits(cfg, params, hidden[:, s:s + C], pv,
+                               have=have, specs=specs)
+        logits, vax = logits.float(), spec_axes(ls, 3)[2]
+        if vax:
+            lse, gold = _vocab_parallel_lse_gold(logits, y, vax)
+        else:
             lse = torch.logsumexp(logits, dim=-1)
             gold = logits.gather(-1, y[..., None])[..., 0]
-        else:
-            logits, ls = lm_logits(cfg, params, hidden[:, s:s + C], pv,
-                                   have=have, specs=specs)
-            logits, vax = logits.float(), spec_axes(ls, 3)[2]
-            if vax:
-                lse, gold = _vocab_parallel_lse_gold(logits, y, vax)
-            else:
-                lse = torch.logsumexp(logits, dim=-1)
-                gold = logits.gather(-1, y[..., None])[..., 0]
         m_c = mask[:, s:s + C]
         tot = tot + ((lse - gold) * m_c).sum()
         cnt = cnt + m_c.sum()
         zsq = zsq + (lse.square() * m_c).sum()
-    if have is not None:
-        bax = spec_axes(have, 3)[0]
-        tot, cnt, zsq = (col.psum(t, bax) for t in (tot, cnt, zsq))
+    bax = spec_axes(have, 3)[0]
+    tot, cnt, zsq = (col.psum(t, bax) for t in (tot, cnt, zsq))
     cnt = torch.clamp_min(cnt, 1.0)
     return tot / cnt, {"ce": tot / cnt, "z_loss": zsq / cnt}
 
 
-def lm_loss(cfg, params, batch):
+def lm_loss(cfg, params, batch, batch_specs=None):
     """Next-token loss for decoder-only families. batch: tokens [B,S] and,
-    for vlm, embeds [B,F,d] prefix. Under a mesh every rank passes the
-    global batch and its local parameter shards; each computes on its own
-    rows, and the loss is the global batch's on every rank."""
-    tokens = batch["tokens"]
+    for vlm, embeds [B,F,d] prefix. Under a mesh every rank passes its
+    local parameter shards and the global batch (or, with
+    ``batch_specs``, its own shards of it, laid out by those specs); each
+    computes on its own rows, and the loss is the global batch's on every
+    rank."""
+    bs = batch_specs or {}
     embeds = batch.get("embeds")
-    if current_mesh() is not None:
-        check_sharded(cfg, embeds)
-        specs = mesh_param_specs(cfg)
-        tokens, ts = constrain_spec(tokens, (batch_axis(cfg), None),
-                                    have=(None, None))
-        hidden, metrics, hs = _sharded_forward(cfg, params, specs, tokens,
-                                               ts)
-        loss, lm = ce_loss(cfg, params, hidden[:, :-1], tokens[:, 1:],
-                           have=hs, specs=specs)
+    specs = mesh_param_specs(cfg)
+    tokens, x, xs = _inputs(cfg, params, specs, batch["tokens"],
+                            bs.get("tokens"), embeds, bs.get("embeds"))
+    hidden, metrics = _forward(cfg, params, specs, x, xs)
+    rows = (xs[0], None, None)
+    hidden = relayout(hidden, xs, rows)          # the whole sequence
+    if embeds is not None:
+        F = embeds.shape[1]
+        h = hidden[:, F - 1: F + tokens.shape[1] - 1]
+        loss, lm = ce_loss(cfg, params, h, tokens, have=rows, specs=specs)
     else:
-        hidden, metrics = lm_forward(cfg, params, tokens, embeds)
-        if embeds is not None:
-            F = embeds.shape[1]
-            h = hidden[:, F - 1: F + tokens.shape[1] - 1]
-            loss, lm = ce_loss(cfg, params, h, tokens)
-        else:
-            loss, lm = ce_loss(cfg, params, hidden[:, :-1], tokens[:, 1:])
+        loss, lm = ce_loss(cfg, params, hidden[:, :-1], tokens[:, 1:],
+                           have=rows, specs=specs)
     metrics.update(lm)
     if cfg.moe is not None and cfg.moe.router_aux_loss \
             and "moe_aux" in metrics:
@@ -418,147 +427,120 @@ def _clone(tree):
     return tree.clone()
 
 
-def _attn_prefill(cfg, p, x, max_len, dtype, window, rope):
-    """Run one attention block AND emit its primed cache."""
+def local_cache_spec(spec, cspecs):
+    """``spec`` (global (torch.Size, dtype) leaves) with each leaf's shape
+    cut to one rank's slice of its layout in ``cspecs``."""
+    if isinstance(spec, dict):
+        return {k: local_cache_spec(spec[k], cspecs[k]) for k in spec}
+    shape, dtype = spec
+    return torch.Size(local_shape(shape, cspecs)), dtype
+
+
+def _drop_lead(cspecs, k: int = 1):
+    """Per-layer specs of a stacked cache's specs."""
+    if isinstance(cspecs, dict):
+        return {n: _drop_lead(v, k) for n, v in cspecs.items()}
+    return tuple(cspecs)[k:]
+
+
+def _relayout_tree(tree, have, want):
+    if isinstance(tree, dict):
+        return {k: _relayout_tree(tree[k], have[k], want[k]) for k in tree}
+    return relayout(tree, have, want)
+
+
+def _cache_at(caches, cspecs, path):
+    """The stack holding layer ``path`` of the caches (a view), the
+    layer's index in it and the layer's cache specs."""
+    stack = caches[path[0]]
+    for j in path[1:-1]:
+        stack = _layer(stack, j)
+    return stack, path[-1], _drop_lead(cspecs[path[0]], len(path) - 1)
+
+
+def _attn_prefill(cfg, p, sp, x, xs, max_len, dtype, rope, cspec):
+    """One attention block AND its cache's local slice."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla:
         out, (c_kv, k_r) = mla.mla_attention(cfg, p["attn"], h, rope,
-                                             return_latents=True)
-        cache = mla.mla_prefill_cache(c_kv, k_r, max_len, dtype)
+                                             return_latents=True, have=xs,
+                                             specs=sp["attn"])
+        cache = mla.mla_prefill_cache(c_kv, k_r, max_len, dtype,
+                                      (xs[0], None, None), cspec)
     else:
-        out, (k, v) = attn.self_attention(cfg, p["attn"], h, causal=True,
-                                          window=window, rope=rope,
-                                          return_kv=True)
-        cache = attn.prefill_cache(cfg, k, v, max_len, dtype)
+        out, (k, v, ks) = attn.self_attention(
+            cfg, p["attn"], h, causal=True, window=cfg.sliding_window,
+            rope=rope, return_kv=True, have=xs, specs=sp["attn"])
+        cache = attn.prefill_cache(cfg, k, v, max_len, dtype, ks, cspec)
     x = x + out
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if "moe" in p:
-        y, _ = moe_mod.moe_apply(cfg, p["moe"], h)
-    else:
-        y = mlp_apply(cfg, p["mlp"], h)
+    y, _ = _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps), xs, sp)
     return x + y, cache
 
 
-def _mamba_prefill(cfg, p, x):
-    """Mamba block forward + its cache after the last token."""
-    fwd = mamba.mamba1_forward if cfg.ssm.version == 1 \
-        else mamba.mamba2_forward
-    out, cache = fwd(cfg, p, x, return_cache=True)
-    return x + out, cache
+def _replicated_logits(cfg, params, specs, x, xs):
+    """Final norm and logits of local rows ``x`` [B, 1, d], all-gathered
+    to every rank: [B, vocab_size] (the reference's replicated
+    out_sharding)."""
+    ln_f, _ = use_params(params["ln_f"], specs["ln_f"])
+    x = rms_norm(x, ln_f, cfg.norm_eps)
+    logits, ls = lm_logits(cfg, params, x, padded_vocab(cfg), have=xs,
+                           specs=specs)
+    logits = relayout(logits, ls, (None, None, None))
+    return logits[:, 0, :cfg.vocab_size]
 
 
-def lm_prefill(cfg, params, batch, max_len: int):
+def lm_prefill(cfg, params, specs, batch, bspecs, max_len: int, cspecs,
+               local_spec):
     """Consume a prompt; return (primed caches, the last position's logits
-    [B, vocab_size]). Caches hold ``max_len`` positions (the window, if
-    smaller), in the compute dtype; Mamba states in f32."""
+    [B, vocab_size] on every rank). ``params`` are laid out by ``specs``,
+    ``batch`` by ``bspecs`` (None entries: whole); the caches are made as
+    this rank's slices (``local_spec``: their local shapes) of the
+    layouts ``cspecs`` (the reference's ``cache_shardings``). Caches hold
+    ``max_len`` positions (the window, if smaller), in the compute dtype;
+    Mamba states in f32."""
     dtype = getattr(torch, cfg.dtype)
-    x = _embed_inputs(cfg, params, batch.get("tokens"), batch.get("embeds"))
-    B, S = x.shape[:2]
-    dev = x.device
-    rope = rope_tables_for(cfg, S, dev)
-    window = cfg.sliding_window
-    fam = cfg.family
-    caches = {}
-    if fam in ("dense", "vlm", "moe"):
-        spec = attn_cache_spec(cfg, B, max_len, dtype)
-        for name in ("dense_layers", "layers"):
-            if name not in params:
-                continue
-            n = _depth(params[name])
-            caches[name] = empty_stack(spec, n, dev)
-            for i in range(n):
-                x, c = _attn_prefill(cfg, _layer(params[name], i), x,
-                                     max_len, dtype, window, rope)
-                write_layer(caches[name], i, c)
-    elif fam == "ssm":
-        caches["layers"] = empty_stack(mamba_cache_spec(cfg, B, dtype),
-                                       cfg.num_layers, dev)
-        for i in range(cfg.num_layers):
-            x, c = _mamba_prefill(cfg, _layer(params["layers"], i), x)
-            write_layer(caches["layers"], i, c)
-    elif fam == "hybrid":
-        g, per, tail = _hybrid_shape(cfg)
-        mspec = mamba.mamba2_cache_spec(cfg, B, dtype)
-        caches["groups"] = empty_stack(stack_cache_spec(mspec, per), g, dev)
-        caches["shared_attn"] = empty_stack(
-            attn.init_cache_spec(cfg, B, max_len, dtype), g, dev)
-        for j in range(g):
-            group, gcache = _layer(params["groups"], j), \
-                _layer(caches["groups"], j)
-            for i in range(per):
-                x, c = _mamba_prefill(cfg, _layer(group, i), x)
-                write_layer(gcache, i, c)
-            x, c = _attn_prefill(cfg, params["shared_attn"], x, max_len,
-                                 dtype, window, rope)
-            write_layer(caches["shared_attn"], j, c)
-        if tail:
-            caches["tail"] = empty_stack(mspec, tail, dev)
-            for i in range(tail):
-                x, c = _mamba_prefill(cfg, _layer(params["tail"], i), x)
-                write_layer(caches["tail"], i, c)
-    else:
-        raise ValueError(fam)
-    x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
-    logits = lm_logits(cfg, params, x, padded_vocab(cfg))
-    return caches, logits[:, 0, :cfg.vocab_size]
+    _, x, xs = _inputs(cfg, params, specs, batch["tokens"],
+                       bspecs.get("tokens"), batch.get("embeds"),
+                       bspecs.get("embeds"))
+    rope = rope_tables_for(cfg, global_shape(x.shape, xs)[1], x.device)
+    caches = cache_from_spec(local_spec, x.device)
+    for kind, p, sp, path in _blocks(cfg, params, specs):
+        stack, i, cspec = _cache_at(caches, cspecs, path)
+        if kind == "attn":
+            x, c = _attn_prefill(cfg, p, sp, x, xs, max_len, dtype, rope,
+                                 cspec)
+        else:
+            out, (c, chave) = _mamba(kind)[0](cfg, p, x, return_cache=True,
+                                             have=xs, specs=sp)
+            x, c = x + out, _relayout_tree(c, chave, cspec)
+        write_layer(stack, i, c)
+    rows = (xs[0], None, None)
+    x = relayout(x, xs, rows)[:, -1:]
+    return caches, _replicated_logits(cfg, params, specs, x, rows)
 
 
-def _attn_decode_block(cfg, p, x, cache, pos, rope):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if cfg.mla:
-        out, _ = mla.mla_decode(cfg, p["attn"], h, cache, pos, rope)
-    else:
-        out, _ = attn.decode_attention(cfg, p["attn"], h, cache, pos, rope)
-    x = x + out
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if "moe" in p:
-        y, _ = moe_mod.moe_apply(cfg, p["moe"], h)
-    else:
-        y = mlp_apply(cfg, p["mlp"], h)
-    return x + y
-
-
-def _mamba_decode_block(cfg, p, x, cache):
-    step = mamba.mamba1_decode if cfg.ssm.version == 1 \
-        else mamba.mamba2_decode
-    out, _ = step(cfg, p, x, cache)
-    return x + out
-
-
-def lm_decode(cfg, params, caches, tokens, pos: int):
-    """One decode step. tokens [B,1]; ``pos`` their position. Returns
-    (logits [B, vocab_size], new caches); ``caches`` is not written."""
-    x = embed_tokens(cfg, params["embed"]["table"], tokens,
-                     getattr(torch, cfg.dtype))
+def lm_decode(cfg, params, specs, caches, cspecs, tokens, tok_have,
+              pos: int):
+    """One decode step. tokens [B,1] (laid out by ``tok_have``; None:
+    whole); ``pos`` their position; ``caches`` this rank's slices laid out
+    by ``cspecs``. Returns (logits [B, vocab_size] on every rank, new
+    caches); ``caches`` is not written."""
+    _, x, xs = _inputs(cfg, params, specs, tokens, tok_have)
     new = _clone(caches)
     rope = rope_tables_for(cfg, 1, x.device, start=pos)
-    fam = cfg.family
-    if fam in ("dense", "vlm", "moe"):
-        for name in ("dense_layers", "layers"):
-            if name not in params:
-                continue
-            for i in range(_depth(params[name])):
-                x = _attn_decode_block(cfg, _layer(params[name], i), x,
-                                       _layer(new[name], i), pos, rope)
-    elif fam == "ssm":
-        for i in range(cfg.num_layers):
-            x = _mamba_decode_block(cfg, _layer(params["layers"], i), x,
-                                    _layer(new["layers"], i))
-    elif fam == "hybrid":
-        g, per, tail = _hybrid_shape(cfg)
-        for j in range(g):
-            group, gcache = _layer(params["groups"], j), \
-                _layer(new["groups"], j)
-            for i in range(per):
-                x = _mamba_decode_block(cfg, _layer(group, i), x,
-                                        _layer(gcache, i))
-            x = _attn_decode_block(cfg, params["shared_attn"], x,
-                                   _layer(new["shared_attn"], j), pos, rope)
-        for i in range(tail):
-            x = _mamba_decode_block(cfg, _layer(params["tail"], i), x,
-                                    _layer(new["tail"], i))
-    else:
-        raise ValueError(fam)
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = lm_logits(cfg, params, x, padded_vocab(cfg))
-    return logits[:, 0, :cfg.vocab_size], new
+    for kind, p, sp, path in _blocks(cfg, params, specs):
+        stack, i, cspec = _cache_at(new, cspecs, path)
+        cache = _layer(stack, i)
+        if kind != "attn":
+            out, _ = _mamba(kind)[1](cfg, p, x, cache, have=xs, specs=sp,
+                                     cspec=cspec)
+            x = x + out
+            continue
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        step = mla.mla_decode if cfg.mla else attn.decode_attention
+        out, _ = step(cfg, p["attn"], h, cache, pos, rope, have=xs,
+                      specs=sp["attn"], cspec=cspec)
+        x = x + out
+        y, _ = _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps), xs, sp)
+        x = x + y
+    return _replicated_logits(cfg, params, specs, x, xs), new

@@ -26,12 +26,23 @@ buffers here, the others hand gloo the CUDA tensor. The choice is fixed per
 operation, from ``probe`` on the card; there is no fallback at run time. A
 card per process swaps NCCL in, in this module only.
 
+Tracing. On fake tensors (``make_fx(..., tracing_mode="fake")`` over a
+fake process group, ``launch/mesh.py::make_production_mesh``) every op
+takes its functional form from ``torch.distributed._functional_collectives``
+instead, so the traced graph holds ``_c10d_functional`` nodes
+(``launch/hlo_analysis.py`` counts them): ``all_gather_into_tensor``,
+``all_reduce`` (sum, max), ``reduce_scatter_tensor``, and
+``all_to_all_single`` for ``ppermute`` (each rank's one send and one
+receive as its splits). Nothing runs
+and nothing is counted here then.
+
 Every call is counted (calls, bytes of the local input, seconds) per mesh
 axis and operation: ``counts()``, ``reset_counts()``.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from collections import defaultdict
 
 import torch
@@ -94,9 +105,47 @@ def axis_index(axis: str, mesh=None) -> int:
     return int(mesh.get_local_rank(axis))
 
 
-def _run(op: str, axis: str, x: torch.Tensor, fn):
+def _traced(x) -> bool:
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(x)
+
+
+def _functional(op: str, mesh, x, axis: str, arg=None):
+    """The ``_c10d_functional`` form of ``op`` on a fake tensor (a traced
+    program: nothing runs)."""
+    import torch.distributed._functional_collectives as fc
+    group = mesh.get_group(axis)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        if op == "all_gather":
+            return fc.all_gather_tensor(x.contiguous(), arg, group)
+        if op == "psum":
+            return fc.all_reduce(x, "sum", group)
+        if op == "pmax":
+            return fc.all_reduce(x, "max", group)
+        if op == "psum_scatter":
+            return fc.reduce_scatter_tensor(x.contiguous(), "sum", arg,
+                                            group)
+        # this rank's send and receive, as one all-to-all with its splits
+        # (a rank no pair sends to gets zeros)
+        n, me, rows = axis_size(axis, mesh), axis_index(axis, mesh), \
+            x.shape[0]
+        send, recv = [0] * n, [0] * n
+        for src, d in arg:
+            if src == me:
+                send[d] = rows
+            if d == me:
+                recv[src] = rows
+        y = fc.all_to_all_single(x.contiguous(), recv, send, group)
+        return y if any(recv) else torch.zeros_like(x)
+
+
+def _run(op: str, axis: str, x: torch.Tensor, fn, mesh=None, arg=None):
     """``fn`` (a gloo call on tensors of one device) on ``x``, staged
-    through a pinned host copy where ``STAGED[op]`` says so; counted."""
+    through a pinned host copy where ``STAGED[op]`` says so; counted. On
+    a fake tensor, the op's functional form instead."""
+    if _traced(x):
+        return _functional(op, mesh, x, axis, arg)
     t0 = time.perf_counter()
     if x.is_cuda and STAGED[op]:
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -125,7 +174,7 @@ def _all_gather(mesh, x, axis: str, dim: int):
         bufs = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(bufs, t, group=mesh.get_group(axis))
         return torch.cat(bufs, dim)
-    return _run("all_gather", axis, x, fn)
+    return _run("all_gather", axis, x, fn, mesh, dim)
 
 
 def _psum(mesh, x, axis: str):
@@ -136,7 +185,7 @@ def _psum(mesh, x, axis: str):
         t = t.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(t, group=mesh.get_group(axis))
         return t
-    return _run("psum", axis, x, fn)
+    return _run("psum", axis, x, fn, mesh)
 
 
 def _pmax(mesh, x, axis: str):
@@ -147,7 +196,7 @@ def _pmax(mesh, x, axis: str):
         t = t.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
         return t
-    return _run("pmax", axis, x, fn)
+    return _run("pmax", axis, x, fn, mesh)
 
 
 def _psum_scatter(mesh, x, axis: str, dim: int):
@@ -163,7 +212,7 @@ def _psum_scatter(mesh, x, axis: str, dim: int):
         out = torch.empty_like(parts[0])
         dist.reduce_scatter(out, parts, group=mesh.get_group(axis))
         return out
-    return _run("psum_scatter", axis, x, fn)
+    return _run("psum_scatter", axis, x, fn, mesh, dim)
 
 
 def _ppermute(mesh, x, axis: str, perm):
@@ -190,7 +239,7 @@ def _ppermute(mesh, x, axis: str, perm):
         for w in dist.batch_isend_irecv(ops) if ops else ():
             w.wait()
         return out
-    return _run("ppermute", axis, x, fn)
+    return _run("ppermute", axis, x, fn, mesh, perm)
 
 
 # ------------------------------------------------------ differentiable --
@@ -258,7 +307,10 @@ def psum_scatter(x, axis: str, dim: int = 0):
 
 
 def psum(x, axes):
-    """The sum of ``x`` over ``axes`` (a name or a tuple of names)."""
+    """The sum of ``x`` over ``axes`` (a name or a tuple of names); ``x``
+    itself over no axis."""
+    if not _axes(axes):
+        return x
     mesh = _mesh()
     for a in _axes(axes):
         x = _Psum.apply(x, mesh, a)
@@ -275,6 +327,8 @@ def pmean(x, axes):
 def pmax(x, axes):
     """The elementwise max over ``axes``; no gradient (it serves as a
     stop-gradient shift: the vocab-parallel log-sum-exp's max)."""
+    if not _axes(axes):
+        return x.detach()
     mesh = _mesh()
     x = x.detach()
     for a in _axes(axes):

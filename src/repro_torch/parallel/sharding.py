@@ -29,9 +29,10 @@ leaf at a step's boundary; sharded model compute runs on the local tensors
 compute: the caller says how the local tensor it produced is laid out
 (``have``, a spec), and ``constrain`` moves it to the layout the rules give
 the logical axes (``relayout``: gathers and slices through
-``parallel/collectives.py``). The MLA, SSM, hybrid and encoder-decoder
-families do not declare their layouts yet; their constrain calls raise
-under a mesh (ROADMAP queue 1, item 3).
+``parallel/collectives.py``). Every constrain site of the models declares
+its ``have``; under a mesh one that declares none raises. Without a mesh
+every spec resolves to replication, ``relayout`` is the identity and the
+same model code runs unsharded.
 
 Physical axes:
   "pod"   — outermost, across pods (multi-pod mesh only)
@@ -296,6 +297,16 @@ def place_local(local: torch.Tensor, like):
                               stride=_contiguous_stride(like.shape))
 
 
+def place_shard(local: torch.Tensor, mesh, spec):
+    """``local`` (this rank's shard of a tensor laid out by ``spec``) as a
+    DTensor on ``mesh``, its global shape made from the local one."""
+    from torch.distributed.tensor import DTensor
+    shape = global_shape(local.shape, spec, mesh)
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
 class MeshSharding:
     """A spec on a mesh — what a jax ``NamedSharding`` is to the reference
     package. ``placements`` is its torch form; ``place(x, s.mesh, s.spec)``
@@ -332,11 +343,24 @@ def spec_axes(spec, ndim: int) -> list:
     return [_entry_axes(e) for e in ent[:ndim]]
 
 
+def _sizes(mesh) -> dict:
+    mesh = mesh or _CTX.mesh
+    return {} if mesh is None else mesh_axis_sizes(mesh)
+
+
 def global_shape(local_shape, spec, mesh=None) -> tuple:
     """The global shape of a local tensor laid out by ``spec``."""
-    sizes = mesh_axis_sizes(mesh or _CTX.mesh)
+    sizes = _sizes(mesh)
     return tuple(int(n) * _mesh_axis_size(sizes, a) for n, a in
                  zip(local_shape, spec_axes(spec, len(local_shape))))
+
+
+def local_shape(shape, spec, mesh=None) -> tuple:
+    """One rank's shape of a tensor of global ``shape`` laid out by
+    ``spec`` (the inverse of ``global_shape``)."""
+    sizes = _sizes(mesh)
+    return tuple(int(n) // _mesh_axis_size(sizes, a) for n, a in
+                 zip(shape, spec_axes(spec, len(shape))))
 
 
 def relayout(x, have, want):
@@ -347,6 +371,8 @@ def relayout(x, have, want):
     ``want``'s remaining axes (major first) — an all-gather transposes to
     a reduce-scatter, a slice to its zero-padded cotangent. The identity
     where the two agree."""
+    if not any(have or ()) and not any(want or ()):
+        return x                                  # whole on both sides
     from repro_torch.parallel import collectives as col
     hs, ws = spec_axes(have, x.ndim), spec_axes(want, x.ndim)
     keep = []
@@ -372,23 +398,22 @@ def constrain(x, logical: Sequence[Optional[str]], have=None):
     """``with_sharding_constraint``: the identity with no mesh installed.
     Under a mesh, ``x`` is a local tensor laid out by spec ``have`` (what
     the producing code left; ``None`` entries replicate); it is moved to
-    ``physical_spec(logical, global shape)`` through ``relayout``. A call
-    that declares no ``have`` comes from a family whose sharded compute is
-    not ported yet, and raises."""
+    ``physical_spec(logical, global shape)`` through ``relayout``."""
     return constrain_spec(x, logical, have)[0]
 
 
 def constrain_spec(x, logical: Sequence[Optional[str]], have=None):
     """``constrain`` that also returns the spec the result is laid out by
-    (None with no mesh)."""
+    (with no mesh: ``have``, or replication). Under a mesh a call must
+    declare ``have``: a site that forgot it would otherwise compute in a
+    layout nobody chose."""
     mesh = _CTX.mesh
     if mesh is None:
-        return x, None
+        return x, tuple(have) if have is not None else (None,) * x.ndim
     if have is None:
-        raise NotImplementedError(
-            "constrain under a mesh in a family whose sharded compute is "
-            "not ported yet (MLA, SSM, hybrid, encoder-decoder, serving "
-            "caches): the next slice of the port (ROADMAP queue 1, item 3)")
+        raise ValueError("constrain under a mesh needs the layout of its "
+                         "input (have=); pass (None, ...) for a replicated "
+                         "one")
     want = physical_spec(logical, global_shape(x.shape, have, mesh), mesh)
     want = tuple(want) + (None,) * (x.ndim - len(want))
     return relayout(x, have, want), want

@@ -17,7 +17,9 @@ sums), psums each leaf's gradient over the axes the leaf is replicated on,
 clips by the global norm that counts each element once, and runs AdamW on
 the local shards. ``init_state`` never holds the whole state in one
 process: each leaf is made whole, sliced and freed in turn, so the state
-is bit-identical to ``place`` of the unsharded one.
+is bit-identical to ``place`` of the unsharded one. Every family runs
+sharded. ``train_step.local_step`` is the step on one rank's local tensors
+(what the dry run traces on the production mesh).
 """
 from __future__ import annotations
 
@@ -118,14 +120,12 @@ def build_train_step(cfg, *, device="cuda", mesh=None, peak_lr=3e-4,
 
 def _sharded_step(cfg, model, device, mesh, sched, opt_update, grad_clip):
     """(init_state, train_step) on ``mesh``: see the module docstring."""
-    from repro_torch.models.transformer import (check_sharded,
-                                                mesh_param_specs)
+    from repro_torch.models.transformer import mesh_param_specs
     from repro_torch.parallel import collectives as col
     from repro_torch.parallel.sharding import (mesh_axis_sizes, place,
                                                place_local, spec_axes,
                                                use_mesh)
 
-    check_sharded(cfg)
     specs = mesh_param_specs(cfg, mesh)
     is_spec = lambda x: isinstance(x, tuple)  # noqa: E731
     spec_leaves = tree_flatten(specs, is_leaf=is_spec)[0]
@@ -156,15 +156,16 @@ def _sharded_step(cfg, model, device, mesh, sched, opt_update, grad_clip):
                        mesh, ()),
             rng=place(rng.to(device), mesh, ()))
 
-    def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
-        batch = batch_to_device(batch, device)
-        leaves, treedef = tree_flatten(state.params)
-        local = [x.to_local().detach().requires_grad_(True)
-                 for x in leaves]
-        step = state.step.to_local()
+    def local_step(params, mu, nu, step, batch, batch_specs=None):
+        """One step on this rank's shards: ``params``, ``mu``, ``nu`` and
+        ``step`` local tensors laid out by the state's specs, ``batch``
+        the global batch (or its shards, laid out by ``batch_specs``).
+        Returns (params, mu, nu, step + 1, metrics), local."""
+        leaves, treedef = tree_flatten(params)
+        local = [x.detach().requires_grad_(True) for x in leaves]
         with use_mesh(mesh):
             loss, metrics = model.loss(tree_unflatten(treedef, local),
-                                       batch)
+                                       batch, batch_specs)
             raw = torch.autograd.grad(loss / n_ranks, local,
                                       allow_unused=True)
             with torch.no_grad():
@@ -179,19 +180,27 @@ def _sharded_step(cfg, model, device, mesh, sched, opt_update, grad_clip):
             grads = tree_unflatten(treedef, grads)
             if grad_clip:
                 grads, gnorm = clip_by_global_norm(grads, grad_clip, gnorm)
-            to_local = lambda t: tree_map(  # noqa: E731
-                lambda x: x.to_local(), t)
             new_params, opt = opt_update(
-                grads, AdamWState(to_local(state.mu), to_local(state.nu)),
+                grads, AdamWState(mu, nu),
                 tree_unflatten(treedef, [p.detach() for p in local]), step)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = gnorm
         metrics["lr"] = sched(step)
+        return new_params, opt.mu, opt.nu, step + 1, metrics
+
+    def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        batch = batch_to_device(batch, device)
+        to_local = lambda t: tree_map(  # noqa: E731
+            lambda x: x.to_local(), t)
+        params, mu, nu, step, metrics = local_step(
+            to_local(state.params), to_local(state.mu), to_local(state.nu),
+            state.step.to_local(), batch)
         new_state = TrainState(
-            params=tree_map(place_local, new_params, state.params),
-            mu=tree_map(place_local, opt.mu, state.mu),
-            nu=tree_map(place_local, opt.nu, state.nu),
-            step=place_local(step + 1, state.step), rng=state.rng)
+            params=tree_map(place_local, params, state.params),
+            mu=tree_map(place_local, mu, state.mu),
+            nu=tree_map(place_local, nu, state.nu),
+            step=place_local(step, state.step), rng=state.rng)
         return new_state, metrics
 
+    train_step.local_step = local_step
     return init_state, train_step

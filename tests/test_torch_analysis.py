@@ -214,7 +214,7 @@ def test_traced_smoke_step_flops_match_reference(shape, tmp_path,
     forwards (checked here too)."""
     monkeypatch.chdir(tmp_path)                # results/fx/ goes there
     r = dryrun.run_cell("florbench-100m", shape, device="cpu", smoke=True)
-    assert r["status"] == "ok" and r["ndev"] == 1
+    assert r["status"] == "ok" and (r["mesh"], r["ndev"]) == ("card", 1)
     got = r["flops_per_device"]
     want = _reference_flops(shape.kind, remat=False)
     assert abs(got - want) / want < 0.05, (got, want)
@@ -292,10 +292,16 @@ def test_cli_cells_errors_jobs_and_the_multi_pod_mesh(tmp_path):
                        cwd=tmp_path, env=env, capture_output=True, text=True,
                        timeout=300)
     assert p.returncode == 1 and '"status": "error"' in p.stdout
+    # rank 0 of the (2, 16, 16) production mesh, over a fake group
     p = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        "--multi-pod", "--device", "cpu"], cwd=tmp_path,
-                       env=env, capture_output=True, text=True, timeout=300)
-    assert p.returncode == 2 and "sharded model compute" in p.stderr
+                        "--multi-pod", "--arch", "florbench-100m", "--smoke",
+                        "--shape", "decode_32k", "--device", "cpu",
+                        "--out", "multi.json"], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    r, = json.loads((tmp_path / "multi.json").read_text())
+    assert (r["mesh"], r["ndev"], r["status"]) == ("multi", 512, "ok")
+    assert r["collective_counts"]["all-gather"] > 0
     # every shape of a reduced config, two cells side by side, then the
     # roofline of the results
     p = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
@@ -307,8 +313,8 @@ def test_cli_cells_errors_jobs_and_the_multi_pod_mesh(tmp_path):
     res = json.loads((tmp_path / "all.json").read_text())
     assert [r["status"] for r in res] == ["ok", "ok", "ok", "skipped"]
     assert all(r["smoke"] for r in res[:3])
-    assert len(list((tmp_path / "results" / "fx").glob("*_smoke.fx.zst"))) \
-        == 3
+    assert len(list((tmp_path / "results" / "fx").glob(
+        "*_card_smoke.fx.zst"))) == 3
     p = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline",
                         "--in", "all.json"], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -333,10 +339,18 @@ def test_mesh_module_peaks_and_meshes():
     from repro_torch.launch import mesh
     assert (mesh.PEAK_FLOPS_BF16, mesh.HBM_BW, mesh.NVLINK_BW) == \
         (989.4e12, 3.35e12, 450e9)
-    with pytest.raises(NotImplementedError, match="sharded model compute"):
-        mesh.make_production_mesh()
     with pytest.raises(ValueError, match="init_distributed"):
         mesh.make_local_mesh(1, 1, device="cpu")
+    # the production mesh starts a fake group of 512 ranks in its process:
+    # built in a process of its own
+    code = ("from repro_torch.launch.mesh import make_production_mesh\n"
+            "m = make_production_mesh(multi_pod=True)\n"
+            "print(m.mesh_dim_names, tuple(m.shape))")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=dict(
+                           os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert "('pod', 'data', 'model') (2, 16, 16)" in p.stdout
 
 
 # ------------------------------------------------------------ reanalyze --

@@ -38,7 +38,7 @@ STEPS, BATCH, SEQ = 2, 8, 16
 # sums round once either way, but the per-shard bf16 weight gradients do
 # not; measured at smoke widths 2.7e-4 (loss) and 1.6e-2 (grad_norm) at
 # most, over florbench-100m, granite-3-2b and mixtral-8x7b. chip_smoke's
-# phase P1 holds the card's sharded launcher to path A with these
+# phase P1 holds the card's sharded launcher to path A2 with these
 BF16_LOSS_RTOL, BF16_GN_RTOL = 1e-3, 2e-2
 
 REF = r"""

@@ -91,15 +91,19 @@ def test_placements_follow_mesh_order():
 
 
 def test_constrain_is_identity_without_mesh_and_raises_under_one():
-    """Under a mesh a call that declares no layout (``have``) comes from a
-    family whose sharded compute is the next slice's: it raises; one that
-    does is moved (``test_constrain_sites_hold_the_reference_shards``)."""
+    """Without a mesh ``constrain`` is the identity and ``constrain_spec``
+    gives back the declared layout (none declared: replicated). Under a
+    mesh a call that declares no layout (``have``) raises — a site that
+    forgot it would compute in a layout nobody chose; one that declares
+    it is moved (``test_constrain_sites_hold_the_reference_shards``)."""
     x = torch.ones(4, 4)
     assert tsh.constrain(x, ("batch", None)) is x
-    assert tsh.constrain_spec(x, ("batch", None)) == (x, None)
+    assert tsh.constrain_spec(x, ("batch", None)) == (x, (None, None))
+    assert tsh.constrain_spec(x, ("batch", None), have=("data", None)) \
+        == (x, ("data", None))
     with tsh.use_mesh(DuckMesh((2, 2), ("data", "model"))):
         assert tsh.current_mesh() is not None
-        with pytest.raises(NotImplementedError, match="next slice"):
+        with pytest.raises(ValueError, match="have="):
             tsh.constrain(x, ("batch", None))
         # a layout that already is the constrained one needs no collective
         y, spec = tsh.constrain_spec(x, ("batch", "mlp"),
@@ -109,35 +113,52 @@ def test_constrain_is_identity_without_mesh_and_raises_under_one():
     assert tsh.current_mesh() is None
 
 
+FAMILY_ARCH = {"mla": "deepseek-v3-671b", "ssm": "falcon-mamba-7b",
+               "hybrid": "zamba2-7b", "encdec": "seamless-m4t-large-v2"}
+
+
 @pytest.mark.parametrize("family", ["mla", "ssm", "hybrid", "encdec"])
-def test_next_slice_families_raise_under_a_mesh(family):
-    """The MLA, SSM, hybrid and encoder-decoder families do not run sharded
-    yet: their loss under a mesh raises, naming the next slice."""
+def test_next_slice_families_raise_under_a_mesh(family, tmp_path):
+    """The MLA, SSM, hybrid and encoder-decoder families run under a mesh
+    (they raised before their sharded compute was ported): on a one-rank
+    ("data", "model") mesh the sharded loss, every collective a no-op,
+    equals the unsharded loss (f32)."""
     from repro_torch.data import synthetic_batch
-    arch = {"mla": "deepseek-v3-671b", "ssm": "falcon-mamba-7b",
-            "hybrid": "zamba2-7b", "encdec": "seamless-m4t-large-v2"}[family]
-    cfg = C.get_smoke(arch)
+    from torch_fleet import world1
+    cfg = C.get_smoke(FAMILY_ARCH[family]).replace(dtype="float32")
     model = build_model(cfg)
     params = model.init(0, "cpu")
     batch = {k: torch.from_numpy(v) for k, v in
              synthetic_batch(cfg, 2, 16, 0, 0).items()}
-    with tsh.use_mesh(DuckMesh((2, 2), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            model.loss(params, batch)
+    want, _ = model.loss(params, batch)
+    with world1(tmp_path, (1, 1), ("data", "model")) as mesh:
+        with tsh.use_mesh(mesh):
+            got, metrics = model.loss(params, batch)
+    assert float(got) == pytest.approx(float(want), rel=1e-6)
+    assert "ce" in metrics
 
 
-def test_serving_raises_under_a_mesh():
-    """Prefill and decode under a mesh are the next slice's."""
-    cfg = C.get_smoke("florbench-100m")
+def test_serving_raises_under_a_mesh(tmp_path):
+    """Prefill and decode run under a mesh (they raised before): on a
+    one-rank mesh the parameters go in whole, the caches come out as
+    DTensors, and the logits equal the unsharded ones."""
+    from torch.distributed.tensor import DTensor
+    from torch_fleet import world1
+    cfg = C.get_smoke("florbench-100m").replace(dtype="float32")
     model = build_model(cfg)
     params = model.init(0, "cpu")
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    with tsh.use_mesh(DuckMesh((2, 2), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            model.prefill(params, {"tokens": tokens}, 16)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            model.decode(params, model.init_cache(2, 16, "cpu"),
-                         tokens[:, :1], 8)
+    tokens = torch.arange(16, dtype=torch.int32).reshape(2, 8)
+    with torch.no_grad():
+        caches, want = model.prefill(params, {"tokens": tokens}, 16)
+        want2, _ = model.decode(params, caches, tokens[:, :1], 8)
+        with world1(tmp_path, (1, 1), ("data", "model")) as mesh:
+            with tsh.use_mesh(mesh):
+                sc, got = model.prefill(params, {"tokens": tokens}, 16)
+                got2, sc2 = model.decode(params, sc, tokens[:, :1], 8)
+    assert isinstance(sc["layers"]["k"], DTensor)
+    assert isinstance(sc2["layers"]["k"], DTensor)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got2, want2, rtol=1e-5, atol=1e-6)
 
 
 SITES = """
@@ -191,8 +212,8 @@ def main(rank, world, args):
     RECORD.clear()
     with tsh.use_mesh(mesh):
         model.loss(local, batch)
-    # the sharded path also constrains the global tokens to its rows
-    sharded = [r for r in RECORD if r[1].ndim > 2]
+    # one walk: the same sites in the same order with and without a mesh
+    sharded = list(RECORD)
     assert len(full) == len(sharded) > 4, (len(full), len(sharded))
     sizes = {"data": d, "model": m}
     for (lg, x, _), (lg2, y, spec) in zip(full, sharded):

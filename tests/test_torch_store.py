@@ -185,3 +185,35 @@ def test_python_scalar_leaf_records_0d_like_the_reference(tmp_path):
     assert view[0]["path"] == "['step']" and view[0]["shape"] == []
     got = CheckpointStore(str(tmp_path / "t")).get_tree("k0")["['step']"]
     assert got.shape == () and int(got) == 3
+
+
+def test_batched_chunk_io_equals_one_at_a_time(tmp_path):
+    """put_chunks / get_chunks (threaded) give what put_chunk / get_chunk
+    give one chunk at a time: the same hashes, bytes written and first-sight
+    flags, a chunk repeated within the batch written once, the files equal,
+    and the reads in order; the same against the reference store."""
+    rng = np.random.default_rng(7)
+    parts = [rng.standard_normal(4096).astype(np.float32).tobytes()
+             for _ in range(5)]
+    datas = [parts[0], parts[1], parts[0], parts[2], b"", parts[3],
+             parts[1], parts[4], b""]
+    one = CheckpointStore(str(tmp_path / "one"))
+    many = CheckpointStore(str(tmp_path / "many"))
+    ref = JStore(str(tmp_path / "ref"))
+    pre = one.put_chunk(parts[3], shard=1)
+    assert many.put_chunk(parts[3], shard=1) == pre
+    seq = [one.put_chunk(d, shard=1) for d in datas]
+    got = many.put_chunks(datas, shard=1)
+    assert got == seq
+    assert [g[2] for g in got] == [True, True, False, True, True, False,
+                                   False, True, False]
+    assert [h for h, _, _ in got] == [ref._put_chunk(d)[0] for d in datas]
+    for h, _, _ in got:
+        with open(one._chunk_path(h, 1), "rb") as a, \
+                open(many._chunk_path(h, 1), "rb") as b:
+            assert a.read() == b.read()
+    hashes = [h for h, _, _ in got]
+    assert many.get_chunks(hashes, shard=1) == datas
+    assert many.get_chunks(hashes, shard=1) == \
+        [one.get_chunk(h, shard=1) for h in hashes]
+    assert many.get_chunks([]) == []
