@@ -2,12 +2,13 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--kernels-only | --mixtral-only | --families-only
-                           | --serve-only | --handsfree-only | --dist-only
-                           | --tools-only | --parallel-only]
+                           | --remat-only | --serve-only | --handsfree-only
+                           | --dist-only | --tools-only | --parallel-only]
 
-``--mixtral-only`` and ``--families-only`` may be given together, and
-with ``--with-t5`` they run T5's traces beside them as the whole script
-does (a control of the host time the traces cost phases M and F).
+``--mixtral-only``, ``--families-only`` and ``--remat-only`` may be given
+together (phases M, F and G, in that order), and with ``--with-t5`` they
+run T5's traces beside them as the whole script does (a control of the
+host time the traces cost phases M and F).
 
 Run from a checkout on a machine with one NVIDIA H100. Phases:
 
@@ -80,6 +81,15 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    their plain versions; one line per family (widths, cut, parameters,
    state GB, step wall, tokens/s, peak device memory, controller, replay,
    #1/#2 against their bound);
+   then phase G, per-layer activation checkpointing: florbench-100m
+   at full width and depth (12 layers, d 768, bf16 compute, f32
+   parameters) on 8 x 4096 tokens a step, one state and one batch, a warm
+   step and ``G_STEPS`` timed steps with ``remat=False``, with the
+   default ``remat_policy="nothing"`` and with ``"dots"``: per setting the
+   peak device memory after a reset, the median step wall, the loss and a
+   digest of the updated state; the three losses and digests must be
+   equal and the peaks with remat below the peak without (every other
+   phase runs the configs' default, remat on, as the reference does);
 5. phase S, serving (``repro_torch.serve.step``) with qwen3-14b at its
    published widths and full depth (40 layers, 14.8 B f32 parameters made
    on the card from the seed): S1 in f32 with TF32 off at batch 1, a
@@ -108,8 +118,9 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
 7. a small-input model check: the same weights on the CPU and the card
    give the same loss;
 8. main path A: ``repro_torch.launch.train.main`` at the full
-   florbench-100m width (batch 8, seq 512, 2 epochs x 3 steps, every epoch
-   checkpointed) into the shared store ``build/chip_smoke/store`` as run
+   florbench-100m width, cut to ``A_LAYERS`` of its 12 layers (batch 8,
+   seq 512, 2 epochs x 3 steps, every epoch checkpointed; R1, R2 and phase
+   D run the same cut) into the shared store ``build/chip_smoke/store`` as run
    ``A``, then a restore of ``A::train@1.0`` that must equal the live state
    bit for bit;
 9. replay R2: ``python -m repro_torch.launch.replay --probe train
@@ -268,7 +279,8 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
    and last the JSON line ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2, ``--mixtral-only`` runs phase M
-alone after the build, ``--families-only`` phase F alone, ``--serve-only``
+alone after the build, ``--families-only`` phase F alone, ``--remat-only``
+phase G alone (the three combine), ``--serve-only``
 phase S alone, ``--handsfree-only`` phase H alone, ``--dist-only``
 path A (which phase D reads) and phase D, ``--tools-only`` phase S,
 path A2 and phase T (T4 then reads A2's run), and
@@ -308,6 +320,12 @@ B_BOUNDS = {"mu": 1e-2, "nu": 1e-3}
 # else raw; these put the measured moment amplitudes across all three
 TIGHT_BOUNDS = {"mu": 1e-5, "nu": 1e-8}
 A_TIP = f"A::train@{EPOCHS - 1}.0"
+# paths A, R1, R2 and D run florbench-100m at full width cut to A_LAYERS
+# of its 12 layers (per-layer remat made every step slower, and the cut
+# takes 26% of the bytes their writers and restores move, to keep the
+# script near 800 s; phase G and the kernel phases keep all 12); a smoke
+# rehearsal keeps its 4
+A_LAYERS = 8
 # path A's (step, loss, grad_norm, wall) per step, for phase P1
 A_STEPS: list = []
 # R2's merged rows, kept for phase D's replay hosts to match
@@ -1051,6 +1069,20 @@ def launch_train(dev, run: str, epochs: int, *extra, smoke=False,
                           "--store-root", STORE, *extra])
 
 
+def a_layers(smoke=False):
+    """Path A's depth for the launchers (None: the config's own)."""
+    return None if smoke else A_LAYERS
+
+
+def a_cfg(smoke=False):
+    """Path A's config: florbench-100m at full width, ``a_layers`` deep."""
+    import repro_torch.configs as C
+
+    if smoke:
+        return C.get_smoke("florbench-100m")
+    return C.with_layers(C.get("florbench-100m"), A_LAYERS)
+
+
 def main_path_a(torch, ops, dev, smoke=False):
     from repro_torch.checkpoint import CheckpointStore
 
@@ -1058,7 +1090,7 @@ def main_path_a(torch, ops, dev, smoke=False):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = launch_train(dev, run, EPOCHS, "--run-id", "A", "--print-steps",
-                       smoke=smoke)
+                       smoke=smoke, layers=a_layers(smoke))
     sync(torch, dev)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1074,6 +1106,7 @@ def main_path_a(torch, ops, dev, smoke=False):
     check_restore(torch, restored, {"state": state}, {})
     width = state.params["embed"]["table"].shape[1]
     say(f"main path A: launcher main() {width}-wide florbench-100m, "
+        f"{a_cfg(smoke).num_layers} layers, "
         f"{EPOCHS}x{STEPS} steps in {wall:.2f} s into the shared store as "
         f"run A; {len(keys)} checkpoints; restore of {A_TIP} "
         f"bit-identical on all 32 leaves")
@@ -1148,7 +1181,7 @@ def replay_r2(torch, dev, smoke=False):
            "--run-dir", run, "--probe", "train", "--nworkers", "2",
            "--check", "--batch", str(BATCH), "--seq", str(SEQ),
            "--seed", str(SEED), "--device", torch.device(dev).type,
-           *(["--smoke"] if smoke else [])]
+           *(["--smoke"] if smoke else ["--layers", str(A_LAYERS)])]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
@@ -1930,6 +1963,102 @@ def phase_f(torch, dev, hbm_bps) -> dict:
     return out
 
 
+# phase G: florbench-100m at full width and depth on train_4k's sequence
+# length (attention takes its chunked path there), a step under each
+# setting of cfg.remat / cfg.remat_policy
+G_BATCH, G_SEQ, G_STEPS = 8, 4096, 3
+G_SETTINGS = (("off", {"remat": False}), ("nothing", {}),
+              ("dots", {"remat_policy": "dots"}))
+
+
+def state_digest(tree) -> str:
+    """blake2b-16 over every leaf's chunk fingerprints (#2 at the
+    pipeline's 64 KiB chunks, on the leaf's device), in flatten order: the
+    digest Flor's change detection trusts, without moving the state off
+    the card."""
+    import hashlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.utils.pytree import tree_leaves
+
+    h = hashlib.blake2b(digest_size=16)
+    for leaf in tree_leaves(tree):
+        h.update(ops.fingerprint_leaf(leaf).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_g(torch, dev) -> dict:
+    """Phase G: one florbench-100m state and batch through the train step
+    with per-layer remat off, "nothing" and "dots": a warm step, then
+    ``G_STEPS`` timed ones from the same state. Per setting: the peak
+    device memory from a reset before the timed steps, the median wall,
+    the loss and the updated state's digest (``state_digest``). The losses and digests must
+    be equal (the recompute runs the same ops on the same inputs) and
+    each remat peak below the peak without. Returns {setting: numbers}."""
+    import repro_torch.configs as C
+    from repro_torch.data import synthetic_batch
+    from repro_torch.train.step import batch_to_device, build_train_step
+    from repro_torch.utils.pytree import tree_bytes
+
+    base = C.get("florbench-100m")
+    init_state, _ = build_train_step(base, device=dev)
+    state = init_state(SEED)
+    batch = batch_to_device(synthetic_batch(base, G_BATCH, G_SEQ, 0, SEED),
+                            dev)
+    say(f"G: florbench-100m, {base.num_layers} layers, d_model "
+        f"{base.d_model}, {base.dtype} compute, {base.param_dtype} "
+        f"parameters, TrainState {tree_bytes(state) / 1e9:.2f} GB; "
+        f"{G_BATCH}x{G_SEQ} tokens a step, attention "
+        f"{'chunked' if G_SEQ > 2048 else 'naive'} ({base.attention_chunk}"
+        f"-key chunks); card {smi_line()}")
+    out = {}
+    for name, over in G_SETTINGS:
+        cfg = base.replace(**over)
+        _, train_step = build_train_step(cfg, device=dev)
+        new, m = train_step(state, batch)               # warm
+        del new, m
+        sync(torch, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        for _ in range(G_STEPS):
+            t0 = time.perf_counter()
+            new, m = train_step(state, batch)
+            sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        loss = float(m["loss"])
+        out[name] = {"peak_gb": peak, "wall_s": statistics.median(walls),
+                     "loss": loss, "digest": state_digest(new),
+                     "loss_bits": m["loss"].float().view(torch.int32).item()}
+        del new, m
+        torch.cuda.empty_cache()
+        r = out[name]
+        say(f"G {name}: remat={cfg.remat} policy={cfg.remat_policy}; peak "
+            f"device memory {peak:.2f} GB; step wall {r['wall_s']:.4f} s "
+            f"(median of {G_STEPS}: {[round(w, 4) for w in walls]}), "
+            f"{G_BATCH * G_SEQ / r['wall_s']:.0f} tokens/s; loss {loss!r}; "
+            f"state digest {r['digest']}")
+    del state, batch
+    torch.cuda.empty_cache()
+    ref = out["off"]
+    for name, r in out.items():
+        if (r["loss_bits"], r["digest"]) != (ref["loss_bits"],
+                                              ref["digest"]):
+            fail(f"G {name}: loss {r['loss']!r} / digest {r['digest']} "
+                 f"differ from remat off's {ref['loss']!r} / "
+                 f"{ref['digest']}")
+        if name != "off" and not r["peak_gb"] < ref["peak_gb"]:
+            fail(f"G {name}: peak {r['peak_gb']:.2f} GB not below remat "
+                 f"off's {ref['peak_gb']:.2f} GB")
+    say(f"G: the three settings give the same loss bits and state digest; "
+        f"peaks {ref['peak_gb']:.2f} (off) / {out['nothing']['peak_gb']:.2f}"
+        f" (nothing) / {out['dots']['peak_gb']:.2f} (dots) GB, walls "
+        f"{ref['wall_s']:.4f} / {out['nothing']['wall_s']:.4f} / "
+        f"{out['dots']['wall_s']:.4f} s")
+    return out
+
+
 def state_fingerprints(torch, dev, hbm_bps, state, label) -> dict:
     """#2 and #1 through ``kernels/ops.py`` on every leaf of a TrainState at
     the pipeline's 64 KiB chunks, digests and masks bit for bit against
@@ -2413,7 +2542,6 @@ def d_child(role: str, rank: int, port: int, dev: str, smoke: bool):
     from torch.distributed.device_mesh import DeviceMesh
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    import repro_torch.configs as C
     from repro_torch.parallel.rendezvous import init_distributed
 
     dev = torch.device(dev)
@@ -2425,8 +2553,8 @@ def d_child(role: str, rank: int, port: int, dev: str, smoke: bool):
     try:
         mesh = DeviceMesh(dev.type, torch.arange(n).reshape(shape),
                           mesh_dim_names=("data", "model"))
-        cfg = (C.get_smoke if smoke else C.get)("florbench-100m")
-        res = d_record(torch, dev, cfg, mesh, group) if role == "record" \
+        res = d_record(torch, dev, a_cfg(smoke), mesh, group) \
+            if role == "record" \
             else d_restore(torch, dev, mesh, rank)
         with open(os.path.join(D_RUN, f"{role}_p{rank}.json"), "w") as f:
             json.dump(res, f)
@@ -2542,13 +2670,12 @@ def placeholder_like(torch, cfg, dev):
 def phase_d(torch, dev, digests_a: dict, smoke=False) -> dict:
     """D1 the fleet record, D2 the restores, D3 two replay hosts; returns
     the record fleet's kernel launches summed over its four processes."""
-    import repro_torch.configs as C
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.utils.pytree import tree_digest, tree_leaves_with_paths
 
     shutil.rmtree(D_RUN, ignore_errors=True)
     os.makedirs(D_RUN)
-    cfg = (C.get_smoke if smoke else C.get)("florbench-100m")
+    cfg = a_cfg(smoke)
     # ---- D1 ----
     t0 = time.perf_counter()
     recs = d_wait("record", d_start("record", D_MESH[0] * D_MESH[1], dev,
@@ -2616,7 +2743,7 @@ def phase_d(torch, dev, digests_a: dict, smoke=False) -> dict:
                  "--seed", str(SEED), "--device", torch.device(dev).type,
                  "--num-processes", "2", "--process-id", str(h),
                  "--merge-timeout", "600",
-                 *(["--smoke"] if smoke else [])],
+                 *(["--smoke"] if smoke else ["--layers", str(A_LAYERS)])],
                 cwd=ROOT, env=env, stdout=out_f, stderr=err_f))
     t0 = time.perf_counter()
     d2b_procs = d_start("restore", D_RESTORE_MESH[0] * D_RESTORE_MESH[1],
@@ -3233,7 +3360,7 @@ def phase_p(torch, dev, steps_a: list, smoke=False) -> dict:
 # unsharded, measured at 1.4e-2 on the CPU at smoke widths (the
 # reference's own gap is 1.0e-2 at its smoke widths), with room for the
 # depth; 1.58e-2 at 10 layers on the card.
-P5_ARCH, P5_LAYERS, P5_STEPS, P5_TOL = "qwen3-14b", 2, 16, 5e-2
+P5_ARCH, P5_LAYERS, P5_STEPS, P5_TOL = "qwen3-14b", 1, 16, 5e-2
 P5_REF = os.path.join(P_RUN, "p5_reference.pt")
 # P6: each remaining family's sharded train step on (2, 2) at its
 # published widths, depth cut: (arch, layers, batch, seq, cut). One step
@@ -3244,14 +3371,14 @@ P5_REF = os.path.join(P_RUN, "p5_reference.pt")
 P6_FAMILIES = (
     ("deepseek-v3-671b", 1, 2, 1024, "1 of 61 layers: one leading dense "
      "layer with MLA, no MoE layer"),
-    ("falcon-mamba-7b", 2, 2, 1024, "2 of 64 layers"),
+    ("falcon-mamba-7b", 1, 2, 1024, "1 of 64 layers"),
     ("zamba2-7b", 6, 2, 1024, "6 of 81 blocks: one group, 5 Mamba2 + the "
      "shared attention block"),
-    ("seamless-m4t-large-v2", 2, 2, 1024, "2 + 2 of 24 + 24 encoder + "
+    ("seamless-m4t-large-v2", 1, 2, 1024, "1 + 1 of 24 + 24 encoder + "
      "decoder layers"),
-    ("llava-next-mistral-7b", 2, 2, 1024, "2 of 32 layers, the 576-patch "
+    ("llava-next-mistral-7b", 1, 2, 1024, "1 of 32 layers, the 576-patch "
      "image prefix and 448 text tokens"),
-    ("qwen3-14b", 2, 2, 1024, "2 of 40 layers, seq_shard"),
+    ("qwen3-14b", 1, 2, 1024, "1 of 40 layers, seq_shard"),
 )
 P6_PEAK_GB = 18.0
 P6_REF = os.path.join(P_RUN, "p6_reference.json")
@@ -4048,7 +4175,7 @@ def main():
     def lap(tag):
         say(f"phase {tag} done at {time.perf_counter() - t_start:.1f} s")
 
-    only = [a for a in ("--mixtral-only", "--families-only")
+    only = [a for a in ("--mixtral-only", "--families-only", "--remat-only")
             if a in sys.argv[1:]]
     if only:
         t5 = t5_start() if "--with-t5" in sys.argv[1:] else None
@@ -4058,11 +4185,16 @@ def main():
             lap("M")
         if "--families-only" in only:
             phase_f(torch, dev, hbm_bps)
+            torch.cuda.empty_cache()
             lap("F")
+        if "--remat-only" in only:
+            phase_g(torch, dev)
+            lap("G")
         if t5 is not None:
             t5_report(t5, smi_line())
-        say(f"{' '.join(only)}: stopping after phase "
-            f"{'F' if '--families-only' in only else 'M'}")
+        last = {"--mixtral-only": "M", "--families-only": "F",
+                "--remat-only": "G"}[only[-1]]
+        say(f"{' '.join(only)}: stopping after phase {last}")
         return
     if "--tools-only" in sys.argv[1:]:
         # phase T reads phase S's times and a recorded run and store: the
@@ -4130,6 +4262,8 @@ def main():
             results[kname].setdefault("family_passes", {})[arch] = r
     lap("F")
     torch.cuda.empty_cache()
+    phase_g(torch, dev)
+    lap("G")
     serve_times = phase_s(torch, dev, hbm_bps)
     torch.cuda.empty_cache()
     lap("S")
@@ -4141,7 +4275,7 @@ def main():
     lap("A")
     replay_r2(torch, dev)
     lap("R2")
-    counts_r1 = replay_r1(torch, dev, cfg, state_a)
+    counts_r1 = replay_r1(torch, dev, a_cfg(), state_a)
     del state_a
     lap("R1")
     # B and C at the lineage paths' cut (2 of 12 layers, full width): the

@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import (apply_rope, cache_from_spec,
-                                       dense_spec, recomputed, rms_norm,
-                                       row_parallel)
+                                       dense_spec, dot, recomputed,
+                                       rms_norm, row_parallel)
 from repro_torch.models.params import ParamSpec
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.sharding import (constrain, constrain_spec,
@@ -197,13 +197,13 @@ def _attention(cfg, p, x, causal, window, rope, have, specs, kv_x=None,
         result, one whose heads are sharded projects the gathered
         sequence (its own heads only)."""
         if not sax or src is not x:
-            return torch.einsum("bsd,dnh->bsnh", src, w.to(src.dtype))
+            return dot("bsd,dnh->bsnh", src, w.to(src.dtype))
         if not axes:
-            y = torch.einsum("bsd,dnh->bsnh", x, w.to(x.dtype))
+            y = dot("bsd,dnh->bsnh", x, w.to(x.dtype))
             return relayout(y, (xb, sax, None, None), (xb, None, None, None))
         if not whole:
             whole.append(relayout(x, have, (xb, None, None)))
-        return torch.einsum("bsd,dnh->bsnh", whole[0], w.to(x.dtype))
+        return dot("bsd,dnh->bsnh", whole[0], w.to(x.dtype))
 
     q = project(x, p["wq"], hax)
     B, S = q.shape[:2]
@@ -280,7 +280,7 @@ def _seq_parallel_core(cfg, wo, wo_h, q, qs, k, v, ks, causal, window,
                       seq_have=(b, sq or None))
     o = o.reshape(B, q.shape[1], KV * G, hd)
     wo = relayout(wo, (wo_h or None, None, None), (None, None, None))
-    out = torch.einsum("bsnh,nhd->bsd", o, wo.to(o.dtype))
+    out = dot("bsnh,nhd->bsd", o, wo.to(o.dtype))
     return out, (b, sq or None, None)
 
 

@@ -19,7 +19,8 @@ by layer — and with no mesh the same code runs on whole tensors. The cross K/V
 laid out by ``encdec_cache_axes`` (``("layer", "batch", None, "kv_heads",
 None)``): whole over the encoder's sequence, so a decode step's cross
 attention needs no combine across ranks; the self-attention cache is the
-decoder-only one's (slots over "model").
+decoder-only one's (slots over "model"). In training each encoder and
+decoder layer is one ``transformer.checkpointed`` layer (``cfg.remat``).
 """
 from __future__ import annotations
 
@@ -38,8 +39,9 @@ from repro_torch.parallel.sharding import (constrain, constrain_spec,
                                            relayout, spec_axes)
 from repro_torch.models.transformer import (_clone, _drop_lead, _layer,
                                             _replicated_logits, ce_loss,
-                                            mesh_param_specs, padded_vocab,
-                                            rope_tables_for, use_params)
+                                            checkpointed, mesh_param_specs,
+                                            padded_vocab, rope_tables_for,
+                                            sub_stack, use_params)
 
 
 def enc_block_spec(cfg):
@@ -76,22 +78,29 @@ def encdec_param_spec(cfg):
     return spec
 
 
+def _enc_layer(p, x, *, cfg, sp, rope, have):
+    """One encoder block from its local shards: (x,)."""
+    p, sp = use_params(p, sp)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn.self_attention(cfg, p["attn"], h, causal=False, rope=rope,
+                                have=have, specs=sp["attn"])
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return (constrain(x + mlp_apply(cfg, p["mlp"], h, have, sp["mlp"]),
+                      ("batch", None, None), have=have),)
+
+
 def _encode(cfg, params, specs, enc_embeds, have=None):
     """The bidirectional encoder over the frame embeddings (laid out by
-    ``have``; None: whole) on local shards: returns (encoder output
-    [B, S_enc, d] on local rows, its spec)."""
+    ``have``; None: whole) on local shards, each layer ``checkpointed``:
+    returns (encoder output [B, S_enc, d] on local rows, its spec)."""
     x = enc_embeds.to(getattr(torch, cfg.dtype))
     x, xs = constrain_spec(x, ("batch", None, None),
                            have=have or (None, None, None))
     rope = rope_tables_for(cfg, x.shape[1], x.device)
     for i in range(cfg.num_layers):
-        lyr, lsp = use_params(params["enc_layers"], specs["enc_layers"], i)
-        h = rms_norm(x, lyr["ln1"], cfg.norm_eps)
-        x = x + attn.self_attention(cfg, lyr["attn"], h, causal=False,
-                                    rope=rope, have=xs, specs=lsp["attn"])
-        h = rms_norm(x, lyr["ln2"], cfg.norm_eps)
-        x = constrain(x + mlp_apply(cfg, lyr["mlp"], h, xs, lsp["mlp"]),
-                      ("batch", None, None), have=xs)
+        lyr, lsp = sub_stack(params["enc_layers"], specs["enc_layers"], i)
+        x, = checkpointed(cfg, _enc_layer, lyr, x, sp=lsp, rope=rope,
+                          have=xs)
     ln, _ = use_params(params["ln_enc"], specs["ln_enc"])
     return rms_norm(x, ln, cfg.norm_eps), xs
 
@@ -126,6 +135,16 @@ def dec_block(cfg, p, x, enc_out, rope=None, have=None, specs=None):
                      ("batch", None, None), have=have)
 
 
+def _dec_layer(p, x, enc_out, *, cfg, sp, rope, have):
+    """One decoder block from its local shards: (x,). Its cross-attention
+    reads ``enc_out`` twice (K and V); through a view of its own the
+    layer sums those two cotangents before they reach ``enc_out``, as a
+    recomputed layer's backward does, so a step gives the same bits with
+    and without ``remat``."""
+    p, sp = use_params(p, sp)
+    return (dec_block(cfg, p, x, enc_out.view_as(enc_out), rope, have, sp),)
+
+
 def encdec_loss(cfg, params, batch, batch_specs=None):
     """Next-token loss of the decoder. batch: enc_embeds [B, S_enc, d],
     dec_tokens [B, S_dec]. Under a mesh: local parameter shards and the
@@ -138,8 +157,9 @@ def encdec_loss(cfg, params, batch, batch_specs=None):
                                 bs.get("dec_tokens"))
     rope = rope_tables_for(cfg, x.shape[1], x.device)
     for i in range(cfg.num_decoder_layers):
-        lyr, lsp = use_params(params["dec_layers"], specs["dec_layers"], i)
-        x = dec_block(cfg, lyr, x, enc_out, rope, xs, lsp)
+        lyr, lsp = sub_stack(params["dec_layers"], specs["dec_layers"], i)
+        x, = checkpointed(cfg, _dec_layer, lyr, x, enc_out, sp=lsp,
+                          rope=rope, have=xs)
     ln_f, _ = use_params(params["ln_f"], specs["ln_f"])
     x = rms_norm(x, ln_f, cfg.norm_eps)
     loss, metrics = ce_loss(cfg, params, x[:, :-1], tokens[:, 1:], have=xs,

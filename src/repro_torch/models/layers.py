@@ -15,14 +15,19 @@ the logits are vocab-parallel. The reference's ``constrain`` calls sit at
 the same places."""
 from __future__ import annotations
 
+import collections
+import contextlib
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.models.params import ParamSpec
 from repro_torch.parallel import collectives as col
-from repro_torch.parallel.sharding import (constrain_spec, relayout,
-                                           spec_axes)
+from repro_torch.parallel.sharding import (constrain_spec, layout_state,
+                                           relayout, spec_axes, use_mesh)
 
 
 def dense_spec(shape, axes, fan_in=None, scale=1.0):
@@ -96,37 +101,114 @@ def write_layer(stack, i, cache):
 
 # ------------------------------------------------------------- recompute --
 
+def batch_free(eq: str) -> bool:
+    """Whether the two-operand einsum ``eq`` is a matmul with no batch
+    dimension in the sense of jax's ``dot_general``: no letter is held by
+    both operands and the output (``bsd,df->bsf`` is one, attention's
+    ``bhqd,bhkd->bhqk`` and MoE's ``ecd,edf->ecf`` are not)."""
+    ins, out = eq.replace(" ", "").split("->")
+    a, b = ins.split(",")
+    return not set(a) & set(b) & set(out)
+
+
+class _Dots(threading.local):
+    def __init__(self):
+        self.saved = None       # the "dots" recompute running here, if any
+        self.replay = False
+
+
+_DOTS = _Dots()
+
+
+class _KeepMatmul(TorchDispatchMode):
+    """Inside one batch-free ``dot`` of a "dots" recompute (an einsum of
+    two operands, which lowers to one ``bmm``): the forward keeps the
+    matmul's output; the backward's recompute takes that output back in
+    the same order instead of multiplying again. Autograd still records
+    the matmul, so its backward is the one a plain call has."""
+
+    def __init__(self, saved, replay):
+        super().__init__()
+        self.saved, self.replay = saved, replay
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket not in (torch.ops.aten.bmm,
+                                       torch.ops.aten.mm):
+            return func(*args, **(kwargs or {}))
+        if self.replay:
+            return self.saved.popleft().detach()
+        out = func(*args, **(kwargs or {}))
+        self.saved.append(out)
+        return out
+
+
+def dot(eq: str, a, b):
+    """``torch.einsum(eq, a, b)``: the models' matmul. Inside a layer
+    recomputed under ``remat_policy="dots"`` a batch-free one
+    (``batch_free``) is the reference's saveable dot: its output is kept
+    from the forward and not computed again by the recompute."""
+    if _DOTS.saved is None or not batch_free(eq):
+        return torch.einsum(eq, a, b)
+    with _KeepMatmul(_DOTS.saved, _DOTS.replay):
+        return torch.einsum(eq, a, b)
+
+
+@contextlib.contextmanager
+def _dots_scope(saved, replay: bool):
+    """Install ``saved`` (a deque, or None: leave the enclosing scope as
+    it is) as the running "dots" recompute's store."""
+    prev = (_DOTS.saved, _DOTS.replay)
+    if saved is not None:
+        _DOTS.saved, _DOTS.replay = saved, replay
+    try:
+        yield
+    finally:
+        _DOTS.saved, _DOTS.replay = prev
+
+
 class _Recomputed(torch.autograd.Function):
     """``fn(*inputs, **kw)`` whose backward recomputes ``fn`` instead of
-    keeping its intermediates; only its inputs stay saved.
+    keeping its intermediates; only its inputs stay saved (and, with
+    ``dots``, the outputs of its batch-free matmuls).
     (``torch.utils.checkpoint`` does the same but keeps the caller's frames,
     a train step's whole state among them, in a reference cycle until the
-    garbage collector runs.)"""
+    garbage collector runs.) The backward reinstalls the forward's mesh:
+    on the card it runs on autograd's own thread. An output the recompute
+    gives no gradient path (a MoE layer's drop fraction) is left out of
+    the backward's ``torch.autograd.grad``."""
 
     @staticmethod
-    def forward(ctx, fn, kw, *inputs):
-        ctx.fn, ctx.kw = fn, kw
+    def forward(ctx, fn, kw, dots, *inputs):
+        ctx.fn, ctx.kw, ctx.layout = fn, kw, layout_state()
+        ctx.dots = collections.deque() if dots else None
         ctx.save_for_backward(*inputs)
-        return fn(*inputs, **kw)
+        with _dots_scope(ctx.dots, replay=False):
+            return fn(*inputs, **kw)
 
     @staticmethod
     def backward(ctx, *grads):
         inputs = [x.detach().requires_grad_(need) for x, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[3:])]
         wrt = [x for x in inputs if x.requires_grad]
-        with torch.enable_grad():
-            outs = ctx.fn(*inputs, **ctx.kw)
-        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
-        return (None, None, *[next(got) if x.requires_grad else None
-                              for x in inputs])
+        with torch.enable_grad(), use_mesh(*ctx.layout):
+            with _dots_scope(ctx.dots, replay=True):
+                outs = ctx.fn(*inputs, **ctx.kw)
+            ctx.dots = None
+            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                           [g for _, g in pairs],
+                                           allow_unused=True))
+        return (None, None, None, *[next(got) if x.requires_grad else None
+                                    for x in inputs])
 
 
-def recomputed(fn, *inputs, **kw):
+def recomputed(fn, *inputs, dots: bool = False, **kw):
     """``fn(*inputs, **kw)`` (tensors in, a tuple of tensors out), with the
     backward pass recomputing ``fn`` from the saved inputs: the reference's
-    ``jax.checkpoint`` of a scan body, one chunk at a time."""
+    ``jax.checkpoint`` of a scan body, one chunk at a time, or of a layer
+    (``dots``: its policy ``checkpoint_dots_with_no_batch_dims``)."""
     if torch.is_grad_enabled():
-        return _Recomputed.apply(fn, kw, *inputs)
+        return _Recomputed.apply(fn, kw, dots, *inputs)
     return fn(*inputs, **kw)
 
 
@@ -304,8 +386,8 @@ def row_parallel(eq, h, w, axes, dtype, scatter=None):
     sum reduce-scattered over those axes (the same as ``axes``) along
     ``dim`` instead — each rank keeps its block of the sum."""
     if not axes:
-        return torch.einsum(eq, h, w.to(h.dtype))
-    part = torch.einsum(eq, h.float(), w.float())
+        return dot(eq, h, w.to(h.dtype))
+    part = dot(eq, h.float(), w.float())
     if scatter is not None:
         dim, sax = scatter
         for a in sax:
@@ -327,9 +409,9 @@ def mlp_apply(cfg, p, x, have=None, specs=None):
     sax = spec_axes(have, 3)[1]
     if sax:           # sequence parallel: the whole sequence in
         x = relayout(x, have, (have[0], None, None))
-    h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
+    h = dot("bsd,df->bsf", x, p["wi"].to(x.dtype))
     if is_gated(cfg.ffn_activation):
-        g = torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))
+        g = dot("bsd,df->bsf", x, p["wg"].to(x.dtype))
         h = act(g) * h
     else:
         h = act(h)

@@ -46,8 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.attention import linear_index, n_ranks
-from repro_torch.models.layers import (dense_spec, norm_spec, recomputed,
-                                       rms_norm, row_parallel)
+from repro_torch.models.layers import (dense_spec, dot, norm_spec,
+                                       recomputed, rms_norm, row_parallel)
 from repro_torch.models.params import ParamSpec
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.sharding import (constrain_spec, global_shape,
@@ -163,10 +163,10 @@ def _mamba1_inner(cfg, p, x1, z, return_state=False, dbc=None):
     dtr = s.dt_rank or -(-cfg.d_model // 16)
 
     if dbc is None:
-        dbc = torch.einsum("bsc,cr->bsr", x1, p["x_proj"].to(x1.dtype))
+        dbc = dot("bsc,cr->bsr", x1, p["x_proj"].to(x1.dtype))
     dt = F.softplus(
-        torch.einsum("bsr,rc->bsc", dbc[..., :dtr],
-                     p["dt_proj"].to(x1.dtype)).float()
+        dot("bsr,rc->bsc", dbc[..., :dtr],
+            p["dt_proj"].to(x1.dtype)).float()
         + p["dt_bias"].float())                              # [B,S,din]
     Bc = dbc[..., dtr:dtr + N].float()                       # [B,S,N]
     Cc = dbc[..., dtr + N:].float()
@@ -447,9 +447,9 @@ def _forward(cfg, p, x, return_cache, have, specs, version):
     cax, hax = _layouts(cfg, version, x.shape, rows)
     w = _local_weights(cfg, p, specs, version, cax, hax)
     h = rms_norm(x, w["norm"], cfg.norm_eps)
-    z = torch.einsum("bsd,dc->bsc", h, w["in_z"].to(x.dtype))
-    pre = torch.einsum("bsd,dc->bsc", h, w["in_x" if version == 1
-                                           else "in_xbc"].to(x.dtype))
+    z = dot("bsd,dc->bsc", h, w["in_z"].to(x.dtype))
+    pre = dot("bsd,dc->bsc", h, w["in_x" if version == 1
+                                  else "in_xbc"].to(x.dtype))
     pre, ps = constrain_spec(pre, ("batch", None, "act_mlp"),
                              have=(xb, None, cax or None))
     conv = F.silu(_causal_conv(pre, w["conv_w"], w["conv_b"]))
@@ -460,7 +460,7 @@ def _forward(cfg, p, x, return_cache, have, specs, version):
                             dbc=dbc)
         red = cax
     else:
-        dt_raw = torch.einsum("bsd,dc->bsc", h, w["in_dt"].to(x.dtype))
+        dt_raw = dot("bsd,dc->bsc", h, w["in_dt"].to(x.dtype))
         xbc = relayout(conv, ps, rows)
         xbc = _split_heads(cfg, xbc, *w["x_cols"])
         res = _mamba2_inner(cfg, w, xbc, z, dt_raw,

@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from repro_torch.models.attention import (NEG_INF, _chunked_sdpa, _mask,
                                           linear_index, n_ranks, seq_owner)
 from repro_torch.models.layers import (apply_rope, cache_from_spec,
-                                       dense_spec, rms_norm, row_parallel)
+                                       dense_spec, dot, rms_norm,
+                                       row_parallel)
 from repro_torch.models.params import ParamSpec
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.sharding import (constrain, constrain_spec,
@@ -68,15 +69,14 @@ def _latents(cfg, p, x, rope):
     """Shared q / kv latent computation. Returns (q_nope, q_rope, c_kv,
     k_r); ``rope`` holds (cos, sin) tables of width qk_rope_head_dim."""
     m = cfg.mla
-    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dq"].to(x.dtype)),
+    cq = rms_norm(dot("bsd,dr->bsr", x, p["w_dq"].to(x.dtype)),
                   p["q_ln"], cfg.norm_eps)
-    q = torch.einsum("bsr,rnh->bsnh", cq, p["w_uq"].to(x.dtype))
+    q = dot("bsr,rnh->bsnh", cq, p["w_uq"].to(x.dtype))
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], rope)
-    c_kv = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(x.dtype)),
+    c_kv = rms_norm(dot("bsd,dr->bsr", x, p["w_dkv"].to(x.dtype)),
                     p["kv_ln"], cfg.norm_eps)
-    k_r = apply_rope(torch.einsum("bsd,dr->bsr", x, p["w_kr"].to(x.dtype)),
-                     rope)
+    k_r = apply_rope(dot("bsd,dr->bsr", x, p["w_kr"].to(x.dtype)), rope)
     return q_nope, q_rope, c_kv, k_r
 
 
@@ -98,8 +98,8 @@ def mla_attention(cfg, p, x, rope, return_latents=False, have=None,
     hax = spec_axes(specs.get("w_uq"), 3)[1]
     kax = spec_axes(specs.get("w_uk"), 3)[1]
     vax = spec_axes(specs.get("w_uv"), 3)[1]
-    k_nope = torch.einsum("bsr,rnh->bsnh", c_kv, p["w_uk"].to(x.dtype))
-    v = torch.einsum("bsr,rnh->bsnh", c_kv, p["w_uv"].to(x.dtype))
+    k_nope = dot("bsr,rnh->bsnh", c_kv, p["w_uk"].to(x.dtype))
+    v = dot("bsr,rnh->bsnh", c_kv, p["w_uv"].to(x.dtype))
     B, S = x.shape[:2]
     q_eff = torch.cat([q_nope, q_rope], dim=-1)
     q_eff = q_eff.reshape(B, S, q_eff.shape[2], 1, qk_hd)

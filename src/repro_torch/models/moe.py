@@ -37,8 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (activation, dense_spec, is_gated,
-                                       mlp_apply)
+from repro_torch.models.layers import (activation, dense_spec, dot,
+                                       is_gated, mlp_apply)
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.sharding import (current_mesh, mesh_axis_sizes,
                                            physical_spec, relayout,
@@ -81,8 +81,7 @@ def top_k(scores, k: int):
 def route(cfg, router_w, x_flat):
     """Router logits -> (top-k weights [T,k] f32, top-k ids [T,k], aux)."""
     mo = cfg.moe
-    logits = torch.einsum("td,de->te", x_flat,
-                          router_w.to(x_flat.dtype)).float()
+    logits = dot("td,de->te", x_flat, router_w.to(x_flat.dtype)).float()
     if mo.router == "sigmoid":
         scores = torch.sigmoid(logits)
         w, ids = top_k(scores, mo.top_k)

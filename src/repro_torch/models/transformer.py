@@ -25,8 +25,16 @@ sequence over "model" with ``seq_shard``; caches are local slices laid out
 by the reference's cache axes (``cspecs``), logits come back replicated.
 With no mesh installed every spec resolves to replication, each relayout
 and collective is the identity, and the same walk runs on whole tensors.
+
+Training checkpoints each block's activations as the reference's
+``_remat`` does (``cfg.remat``, ``cfg.remat_policy``): a block is one
+``checkpointed`` layer whose backward recomputes it from its input and its
+local weight shards, gathering them again; the step's bits are the same
+with any setting.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -37,8 +45,8 @@ from repro_torch.models.layers import (batch_axis, cache_from_spec,
                                        embed_tokens, gathered_logits_weight,
                                        embedding_spec, lm_logits, mlp_apply,
                                        mlp_spec, norm_spec,
-                                       padded_vocab_size, rms_norm,
-                                       rope_tables, unembed_spec,
+                                       padded_vocab_size, recomputed,
+                                       rms_norm, rope_tables, unembed_spec,
                                        write_layer)
 from repro_torch.models.params import _map_specs, stack_spec
 from repro_torch.parallel import collectives as col
@@ -47,6 +55,35 @@ from repro_torch.parallel.sharding import (constrain, constrain_spec,
                                            local_shape, model_spec,
                                            physical_spec, relayout,
                                            spec_axes)
+from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+
+
+def _remat(cfg, fn):
+    """The reference's per-layer activation checkpointing of ``fn`` (a
+    layer: tensors in, a tuple of tensors out): ``fn`` itself with
+    ``remat=False``; else a call whose backward recomputes ``fn`` from its
+    saved inputs, keeping, with ``remat_policy="dots"``, the outputs of its
+    batch-free matmuls (``layers.dot``). Any other policy, "full" among
+    them, saves nothing, as the reference's ``_remat`` has it."""
+    if not cfg.remat:
+        return fn
+    return functools.partial(recomputed, fn,
+                             dots=cfg.remat_policy == "dots")
+
+
+def checkpointed(cfg, fn, p, *xs, **kw):
+    """``fn(p, *xs, cfg=cfg, **kw)`` through ``_remat``: the layer's
+    parameters ``p`` (a dict of tensors) flattened into the recomputed
+    inputs after the tensors ``xs``; ``kw`` (specs, layouts, the RoPE
+    tables) is passed as it is and never differentiated."""
+    leaves, treedef = tree_flatten(p)
+    return _remat(cfg, _unflattened)(*xs, *leaves, layer=fn,
+                                     treedef=treedef, nx=len(xs), cfg=cfg,
+                                     **kw)
+
+
+def _unflattened(*inputs, layer, treedef, nx, **kw):
+    return layer(tree_unflatten(treedef, inputs[nx:]), *inputs[:nx], **kw)
 
 
 def padded_vocab(cfg) -> int:
@@ -239,20 +276,24 @@ def sub_stack(tree, specs, j):
 
 
 def _blocks(cfg, params, specs):
-    """Every block of the stack in order, each gathered as it comes:
-    (kind — "attn" for a dense / MoE block or the hybrid's shared
-    attention, "mamba1" / "mamba2" —, its weights, their "model" specs,
-    the path of its layer in the caches)."""
+    """Every block of the stack in order: (kind — "attn" for a dense / MoE
+    block or the hybrid's shared attention, "mamba1" / "mamba2" —, its
+    weights as this rank holds them, their specs, the path of its layer in
+    the caches). A layer's weights are local shards, which its user
+    gathers (``use_params``: inside a recomputed layer, so its backward
+    gathers them again, one layer at a time); the hybrid's shared block,
+    applied once a group, comes gathered once, with its "model" specs
+    (gathering it again is the identity)."""
     fam = cfg.family
     if fam in ("dense", "vlm", "moe"):
         for name in ("dense_layers", "layers"):
             for i in range(_depth(params[name]) if name in params else 0):
-                yield ("attn",) + use_params(params[name], specs[name], i) \
+                yield ("attn",) + sub_stack(params[name], specs[name], i) \
                     + ((name, i),)
     elif fam == "ssm":
         kind = f"mamba{cfg.ssm.version}"
         for i in range(_depth(params["layers"])):
-            yield (kind,) + use_params(params["layers"], specs["layers"], i) \
+            yield (kind,) + sub_stack(params["layers"], specs["layers"], i) \
                 + (("layers", i),)
     elif fam == "hybrid":
         g, per, tail = _hybrid_shape(cfg)
@@ -260,11 +301,11 @@ def _blocks(cfg, params, specs):
         for j in range(g):
             grp, gsp = sub_stack(params["groups"], specs["groups"], j)
             for i in range(per):
-                yield ("mamba2",) + use_params(grp, gsp, i) \
+                yield ("mamba2",) + sub_stack(grp, gsp, i) \
                     + (("groups", j, i),)
             yield "attn", shared, ssp, ("shared_attn", j)
         for i in range(tail):
-            yield ("mamba2",) + use_params(params["tail"], specs["tail"], i) \
+            yield ("mamba2",) + sub_stack(params["tail"], specs["tail"], i) \
                 + (("tail", i),)
     else:
         raise ValueError(fam)
@@ -275,20 +316,38 @@ def _mamba(kind):
             "mamba2": (mamba.mamba2_forward, mamba.mamba2_decode)}[kind]
 
 
+def _attn_layer(p, x, *, cfg, sp, rope, have):
+    """One attention + MLP / MoE block from its weights as ``_blocks``
+    gives them: (x,) or, for a MoE block, (x, moe_aux, moe_dropped)."""
+    p, sp = use_params(p, sp)
+    x, m = block(cfg, p, x, cfg.sliding_window, rope, have, sp)
+    return (x,) if m is None else (x, m["moe_aux"], m["moe_dropped"])
+
+
+def _mamba_layer(p, x, *, cfg, sp, kind, have):
+    """One Mamba block and its residual: (x,)."""
+    p, sp = use_params(p, sp)
+    return (x + _mamba(kind)[0](cfg, p, x, have=have, specs=sp),)
+
+
 def _forward(cfg, params, specs, x, xs):
     """Every block and the final norm over the local residual ``x`` (laid
-    out by ``xs``): returns (hidden, metrics)."""
+    out by ``xs``): returns (hidden, metrics). Each block is one
+    ``checkpointed`` layer, as the reference's ``_remat`` wraps each scan
+    body (the hybrid's shared block at each of its uses)."""
     # the whole sequence's tables: attention gathers a sharded sequence
     rope = rope_tables_for(cfg, global_shape(x.shape, xs)[1], x.device)
     aux, drop = [], []
     for kind, p, sp, _ in _blocks(cfg, params, specs):
         if kind != "attn":
-            x = x + _mamba(kind)[0](cfg, p, x, have=xs, specs=sp)
+            x, = checkpointed(cfg, _mamba_layer, p, x, sp=sp, kind=kind,
+                              have=xs)
             continue
-        x, m = block(cfg, p, x, cfg.sliding_window, rope, xs, sp)
-        if m is not None:
-            aux.append(m["moe_aux"])
-            drop.append(m["moe_dropped"])
+        x, *m = checkpointed(cfg, _attn_layer, p, x, sp=sp, rope=rope,
+                             have=xs)
+        if m:
+            aux.append(m[0])
+            drop.append(m[1].detach())
     # with no MoE layer (depth cut to the leading dense layers) there is
     # no router loss to add; the reference's mean over the empty stack
     # is NaN, and so is its loss (ROADMAP queue 3)
@@ -505,6 +564,7 @@ def lm_prefill(cfg, params, specs, batch, bspecs, max_len: int, cspecs,
     rope = rope_tables_for(cfg, global_shape(x.shape, xs)[1], x.device)
     caches = cache_from_spec(local_spec, x.device)
     for kind, p, sp, path in _blocks(cfg, params, specs):
+        p, sp = use_params(p, sp)
         stack, i, cspec = _cache_at(caches, cspecs, path)
         if kind == "attn":
             x, c = _attn_prefill(cfg, p, sp, x, xs, max_len, dtype, rope,
@@ -529,6 +589,7 @@ def lm_decode(cfg, params, specs, caches, cspecs, tokens, tok_have,
     new = _clone(caches)
     rope = rope_tables_for(cfg, 1, x.device, start=pos)
     for kind, p, sp, path in _blocks(cfg, params, specs):
+        p, sp = use_params(p, sp)
         stack, i, cspec = _cache_at(new, cspecs, path)
         cache = _layer(stack, i)
         if kind != "attn":

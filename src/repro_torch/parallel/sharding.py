@@ -111,6 +111,13 @@ def current_mesh():
     return _CTX.mesh
 
 
+def layout_state() -> tuple:
+    """(mesh, rules) as installed on this thread: ``use_mesh(*state)``
+    installs them on another (autograd's, which runs a backward on the
+    card)."""
+    return _CTX.mesh, _CTX.rules
+
+
 def mesh_axis_sizes(mesh) -> dict[str, int]:
     """{axis name: size} in mesh order: a DeviceMesh's ``mesh_dim_names``
     with its shape, or a mesh whose ``shape`` already is such a mapping."""

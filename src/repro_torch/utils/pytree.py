@@ -16,6 +16,7 @@ import dataclasses
 import re
 from typing import Any, Callable
 
+import numpy as np
 import torch
 from torch.utils import _pytree as tp
 
@@ -189,6 +190,23 @@ def tree_map(fn: Callable, tree, *rest):
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
 
 
+def path_str(path) -> str:
+    """A key path of ``tree_flatten_with_path`` as the reference's
+    ``path_str`` renders a jax one: its keys joined by "/" (a dict key,
+    a sequence index, an attribute name)."""
+    parts = []
+    for k in path:
+        if isinstance(k, tp.MappingKey):
+            parts.append(str(k.key))
+        elif isinstance(k, tp.SequenceKey):
+            parts.append(str(k.idx))
+        elif isinstance(k, tp.GetAttrKey):
+            parts.append(str(k.name))
+        else:
+            parts.append(str(k))
+    return "/".join(parts)
+
+
 def tree_leaves_with_paths(tree):
     """[(keystr path, leaf), ...] in the reference order."""
     flat, _ = tree_flatten_with_path(tree)
@@ -204,6 +222,43 @@ def tree_bytes(tree) -> int:
         elif hasattr(leaf, "nbytes"):
             total += int(leaf.nbytes)
     return total
+
+
+def tree_size(tree) -> int:
+    """Total element count of all tensor / array leaves."""
+    return sum(int(leaf.numel()) if isinstance(leaf, torch.Tensor)
+               else int(leaf.size) for leaf in tree_leaves(tree)
+               if hasattr(leaf, "shape"))
+
+
+def tree_allclose(a, b, rtol=1e-5, atol=1e-6) -> bool:
+    """Whether two trees hold leaves of the same count and shapes whose
+    values agree within ``rtol`` / ``atol`` (compared in float64, as the
+    reference's ``np.allclose``)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        x, y = _as_numpy(x), _as_numpy(y)
+        if x.shape != y.shape or not np.allclose(
+                x.astype(np.float64), y.astype(np.float64), rtol=rtol,
+                atol=atol):
+            return False
+    return True
+
+
+def _as_numpy(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def cast_floating(tree, dtype):
+    """Cast floating-point tensor leaves to ``dtype``; leave integer and
+    boolean leaves (and non-tensors) alone."""
+    return tree_map(lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+                    and x.is_floating_point() else x, tree)
 
 
 def block_until_ready(tree):

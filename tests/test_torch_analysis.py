@@ -205,24 +205,29 @@ def _reference_flops(kind: str, remat: bool = True) -> float:
 def test_traced_smoke_step_flops_match_reference(shape, tmp_path,
                                                  monkeypatch):
     """Measured (florbench-100m smoke, batch 2 x 64): prefill 218 628 096
-    and decode 3 932 160 FLOPs in both packages, exactly. Train: the port
-    753 401 856 against the reference's 753 659 904 with ``remat=False``
-    (-0.034%): the reference picks the gold logit as a one-hot dot,
-    2 * 2 * 63 * 1024 = 258 048 FLOPs; the port gathers it. The port's
-    step does not recompute layers (it reads no ``cfg.remat``), so the
-    reference's default step, which does, is 20% above it: its recomputed
-    forwards (checked here too)."""
+    and decode 3 932 160 FLOPs in both packages, exactly. Train with
+    ``remat=False``: the port 753 401 856 against the reference's
+    753 659 904 (-0.034%): the reference picks the gold logit as a one-hot
+    dot, 2 * 2 * 63 * 1024 = 258 048 FLOPs; the port gathers it. Train
+    with the default ``remat=True``: the port 971 505 664 against the
+    reference's 904 654 848 (+7.4%): both recompute each layer's forward
+    in its backward, but XLA drops the recompute of the layer's last
+    matmul (the MLP's output projection, 2 * 2 * 64 * 512 * 128 FLOPs a
+    layer), whose result the backward does not read; the port's recompute
+    runs the whole layer."""
     monkeypatch.chdir(tmp_path)                # results/fx/ goes there
     r = dryrun.run_cell("florbench-100m", shape, device="cpu", smoke=True)
     assert r["status"] == "ok" and (r["mesh"], r["ndev"]) == ("card", 1)
     got = r["flops_per_device"]
-    want = _reference_flops(shape.kind, remat=False)
-    assert abs(got - want) / want < 0.05, (got, want)
     if shape.kind == "train":
-        assert want - got == 2 * 2 * 63 * 1024
-        remat = _reference_flops("train", remat=True)
-        assert 1.1 * got < remat < 4 / 3 * got
+        off = dryrun.run_cell("florbench-100m", shape, device="cpu",
+                              smoke=True, overrides={"remat": "false"})
+        want = _reference_flops("train", remat=False)
+        assert want - off["flops_per_device"] == 2 * 2 * 63 * 1024
+        want = _reference_flops("train", remat=True)
+        assert got - want == 4 * 2 * 2 * 64 * 512 * 128 - 2 * 2 * 63 * 1024
     else:
+        want = _reference_flops(shape.kind)
         assert got == want
     mem = r["memory"]
     assert mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0

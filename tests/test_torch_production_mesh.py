@@ -192,7 +192,8 @@ from repro_torch.launch.mesh import make_fake_mesh
 kind = sys.argv[1]
 m = make_fake_mesh((2, 4), ("data", "model"))
 r = dryrun.run_cell("florbench-100m", ShapeSpec(kind, kind, 64, 8),
-                    device="cpu", smoke=True, device_mesh=m)
+                    device="cpu", smoke=True, device_mesh=m,
+                    overrides={"remat": "false"})
 print("PORT", json.dumps([r["status"], r["mesh"], r["ndev"],
                           r["flops_per_device"],
                           r["collective_bytes_per_device"]]))
@@ -203,8 +204,8 @@ print("PORT", json.dumps([r["status"], r["mesh"], r["ndev"],
 def test_sharded_smoke_flops_match_reference(kind, tmp_path):
     """Measured (florbench-100m smoke, batch 8 x 64, (2, 4)): decode
     1 966 080 FLOPs a device in both packages; train 376 700 928 against
-    the reference's 376 829 952 with ``remat=False`` (-0.034%: its gold
-    logit is a one-hot dot, the port's a gather)."""
+    the reference's 376 829 952, both with ``remat=False`` (-0.034%: its
+    gold logit is a one-hot dot, the port's a gather)."""
     ref = subprocess.Popen(
         [sys.executable, "-c",
          "import os\nos.environ['XLA_FLAGS'] = "

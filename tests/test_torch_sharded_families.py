@@ -24,7 +24,9 @@ AdamW's update is the gradient over its own root mean square, so where
 the gradient is a small difference of large terms the order in which the
 two sides sum them moves the update by a large share of the step size.
 In the fleet a second run of each step from the same state
-gives the same bits."""
+gives the same bits, and a case that sets ``remat`` / ``remat_policy``
+gives, rank by rank, the same local shards and metrics as the config's
+default setting at every step."""
 import os
 import pickle
 import subprocess
@@ -64,8 +66,26 @@ CASES = [
     # path runs the seq_mp layout (each rank its own queries)
     ("qwen3-14b", (1, 4), {"attention_impl": "chunked",
                            "attention_chunk": 4}),
+    # per-layer remat: the cases above run the default (on, "nothing");
+    # these run it off and under "dots", dense and expert-parallel, and
+    # the fleet holds each to the default's bits
+    ("florbench-100m", (2, 2), {"remat": False}),
+    ("florbench-100m", (2, 2), {"remat_policy": "dots"}),
+    ("mixtral-8x7b", (2, 2), {"remat": False}),
+    ("mixtral-8x7b", (2, 2), {"remat_policy": "dots"}),
 ]
-IDS = [f"{a}-{m[0]}x{m[1]}{'-chunked' if o else ''}" for a, m, o in CASES]
+REMAT = {"remat", "remat_policy"}
+
+
+def _case_id(arch, mesh, over) -> str:
+    tag = "-chunked" if "attention_impl" in over else \
+        "-remat-off" if over.get("remat") is False else \
+        "-dots" if over.get("remat_policy") == "dots" else ""
+    return f"{arch}-{mesh[0]}x{mesh[1]}{tag}"
+
+
+IDS = [_case_id(*c) for c in CASES]
+REMAT_IDS = [i for i, (_, _, o) in zip(IDS, CASES) if REMAT & set(o)]
 
 REF = r"""
 import json, pickle, sys
@@ -116,7 +136,7 @@ for c in cases:
 with open(out, "wb") as f:
     pickle.dump(res, f)
 """
-CONSTS = f"STEPS, BATCH, SEQ = {STEPS}, {BATCH}, {SEQ}\n"
+CONSTS = f"STEPS, BATCH, SEQ, REMAT = {STEPS}, {BATCH}, {SEQ}, {REMAT}\n"
 
 PORT = """
 import pickle
@@ -144,6 +164,13 @@ def main(rank, world, args):
         state = state_from_numpy(c["state"], "cpu")
         sh = state_shardings(cfg, mesh, state)
         state = tree_map(lambda x, s: place(x, mesh, s.spec), state, sh)
+        same = None
+        if REMAT & set(c["over"]):
+            # the same steps under the config's default remat setting
+            base = {k: v for k, v in c["over"].items() if k not in REMAT}
+            _, ts0 = build_train_step(C.get_smoke(c["arch"]).replace(
+                dtype="float32", **base), device="cpu", mesh=mesh)
+            state0, same = state, True
         metrics = []
         for step in range(STEPS):
             batch = synthetic_batch(cfg, BATCH, SEQ, step, 0)
@@ -152,9 +179,15 @@ def main(rank, world, args):
             for a, b in zip(tree_leaves(state), tree_leaves(again)):
                 assert torch.equal(a.to_local(), b.to_local()), c["id"]
             assert all(torch.equal(mt[k], m2[k]) for k in mt), c["id"]
+            if same is not None:
+                state0, m0 = ts0(state0, batch)
+                same = same and all(
+                    torch.equal(a.to_local(), b.to_local())
+                    for a, b in zip(tree_leaves(state), tree_leaves(state0))
+                ) and all(torch.equal(mt[k], m0[k]) for k in mt)
             metrics.append({k: float(v) for k, v in mt.items()})
         full = tree_map(lambda x: x.full_tensor().numpy(), state.params)
-        res[c["id"]] = {"metrics": metrics, "params": full}
+        res[c["id"]] = {"metrics": metrics, "params": full, "same": same}
     if rank == 0:
         with open(out, "wb") as f:
             pickle.dump(res, f)
@@ -235,6 +268,14 @@ def test_sharded_family_step_matches_reference(runs, cid):
         err = np.abs(a - b)
         bad = err > tol
         assert not bad.any(), (p, int(bad.sum()), float((err / tol).max()))
+
+
+@pytest.mark.parametrize("cid", REMAT_IDS)
+def test_sharded_remat_setting_gives_the_default_bits(runs, cid):
+    """Every rank's local shards and metrics after each step equal, bit
+    for bit, those of the config's default setting (remat on,
+    "nothing")."""
+    assert runs[0][cid]["same"] is True
 
 
 def test_zamba2_launcher_fleet_records_and_replays(tmp_path):
