@@ -20,6 +20,7 @@ from typing import Any
 
 from repro_torch.core.context import get_context
 from repro_torch.utils.pytree import block_until_ready, tree_bytes
+from repro_torch.utils.timing import span
 
 
 class _SkipBlockAPI:
@@ -29,23 +30,24 @@ class _SkipBlockAPI:
 
     # -- internal protocol (shared with the session surface's flor.loop) --
     def _open(self, ctx, block_id: str) -> bool:
-        key = ctx.block_key(block_id)
-        if ctx.mode == "record":
-            execute = True
-        else:
-            has = ctx.store.has(key)
-            if ctx.replay_phase == "init":
-                # initialization: skip whenever physically possible
-                execute = not has
+        with span("repro_torch.flor.block"):
+            key = ctx.block_key(block_id)
+            if ctx.mode == "record":
+                execute = True
             else:
-                # work segment: re-execute probed blocks (logical redo);
-                # skip unprobed memoized blocks (physical redo)
-                probed = block_id in ctx.probed or "*" in ctx.probed
-                execute = probed or not has
-        self._executed[block_id] = execute
-        ctx.block_executed[block_id] = execute   # per-context, not global
-        self._t_enter[block_id] = time.perf_counter()
-        return execute
+                has = ctx.store.has(key)
+                if ctx.replay_phase == "init":
+                    # initialization: skip whenever physically possible
+                    execute = not has
+                else:
+                    # work segment: re-execute probed blocks (logical
+                    # redo); skip unprobed memoized blocks (physical redo)
+                    probed = block_id in ctx.probed or "*" in ctx.probed
+                    execute = probed or not has
+            self._executed[block_id] = execute
+            ctx.block_executed[block_id] = execute   # per-context
+            self._t_enter[block_id] = time.perf_counter()
+            return execute
 
     def _abort(self, ctx, block_id: str):
         """Abandon an open block without memoizing (early exit / exception):
@@ -87,12 +89,17 @@ class _SkipBlockAPI:
         return self._close(get_context(), block_id, state)
 
     def _close(self, ctx, block_id: str, state: Any) -> Any:
-        key = ctx.block_key(block_id)
         executed = self._executed.pop(block_id, True)
         if executed:
             # the card runs the block's launches asynchronously: wait for
-            # them so C_i measures the work, not its enqueue
+            # them so C_i measures the work, not its enqueue (the wait is
+            # the block's device work, outside Flor's span)
             block_until_ready(state)
+        with span("repro_torch.flor.block"):
+            return self._closed(ctx, block_id, state, executed)
+
+    def _closed(self, ctx, block_id: str, state: Any, executed: bool):
+        key = ctx.block_key(block_id)
         elapsed = time.perf_counter() - self._t_enter.pop(block_id, time.perf_counter())
 
         if executed:

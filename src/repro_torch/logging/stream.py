@@ -51,6 +51,7 @@ from repro_torch.logging.jsonable import json_default, jsonable
 from repro_torch.logging.segment import (DEFAULT_ROLL_BYTES, SegmentSink,
                                    migrate_flat_to_segments, needs_migration,
                                    read_stream, remove_stream, tail_seq)
+from repro_torch.utils.timing import span
 
 DEFAULT_QUEUE_DEPTH = 1024
 DEFAULT_SPILL_BYTES = 1 << 20          # 1 MiB of host bytes
@@ -122,17 +123,18 @@ class FingerprintLog:
         enqueue on the calling thread (blocking only when the bounded queue
         is full — backpressure, the same contract as checkpoint submits);
         sync mode: serialize + write here and now."""
-        epoch = int(epoch) if epoch is not None else None
-        seq = self._seq
-        self._seq += 1
-        if self._stage is not None:
-            self._stage.put((epoch, seq, key, _capture(value, key)))
-            return
-        t0 = time.perf_counter()
-        line, nbytes = self._serialize(epoch, seq, key, value)
-        self._f.write(line) if self._f is not None \
-            else self._sink.append(line, seq)
-        self._account(time.perf_counter() - t0, nbytes)
+        with span("repro_torch.flor.log"):
+            epoch = int(epoch) if epoch is not None else None
+            seq = self._seq
+            self._seq += 1
+            if self._stage is not None:
+                self._stage.put((epoch, seq, key, _capture(value, key)))
+                return
+            t0 = time.perf_counter()
+            line, nbytes = self._serialize(epoch, seq, key, value)
+            self._f.write(line) if self._f is not None \
+                else self._sink.append(line, seq)
+            self._account(time.perf_counter() - t0, nbytes)
 
     def _emit(self, item):
         """Background stage: device->host + serialize + spill + segment

@@ -56,6 +56,7 @@ from repro_torch.parallel.sharding import (constrain, constrain_spec,
                                            physical_spec, relayout,
                                            spec_axes)
 from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+from repro_torch.utils.timing import span
 
 
 def _remat(cfg, fn):
@@ -152,10 +153,12 @@ def block(cfg, p, x, window=None, rope=None, have=None, specs=None):
     whole)."""
     have, specs = have or (None, None, None), specs or {}
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _attention(cfg, p["attn"], h, window, rope, have,
-                       specs.get("attn"))
+    with span("repro_torch.attention"):
+        x = x + _attention(cfg, p["attn"], h, window, rope, have,
+                           specs.get("attn"))
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y, metrics = _ffn(cfg, p, h, have, specs)
+    with span("repro_torch.ffn"):
+        y, metrics = _ffn(cfg, p, h, have, specs)
     return constrain(x + y, res_axes(cfg), have), metrics
 
 
@@ -397,34 +400,36 @@ def ce_loss(cfg, params, hidden, labels, mask=None, have=None, specs=None):
     logits are vocab-parallel where the weight's vocab dim stays sharded
     and the sums are psummed over the batch axes, so the loss is the
     global batch's mean on every rank."""
-    pv = padded_vocab(cfg)
-    B, T, _ = hidden.shape
-    have = have or (None, None, None)
-    if mask is None:
-        mask = torch.ones((B, T), dtype=torch.float32, device=hidden.device)
-    C = _loss_chunk_size(cfg, T)
-    params, specs = gathered_logits_weight(cfg, params, specs or {}, have)
-    tot = hidden.new_zeros((), dtype=torch.float32)
-    cnt = hidden.new_zeros((), dtype=torch.float32)
-    zsq = hidden.new_zeros((), dtype=torch.float32)
-    for s in range(0, T, C):
-        y = labels[:, s:s + C].long()
-        logits, ls = lm_logits(cfg, params, hidden[:, s:s + C], pv,
-                               have=have, specs=specs)
-        logits, vax = logits.float(), spec_axes(ls, 3)[2]
-        if vax:
-            lse, gold = _vocab_parallel_lse_gold(logits, y, vax)
-        else:
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, y[..., None])[..., 0]
-        m_c = mask[:, s:s + C]
-        tot = tot + ((lse - gold) * m_c).sum()
-        cnt = cnt + m_c.sum()
-        zsq = zsq + (lse.square() * m_c).sum()
-    bax = spec_axes(have, 3)[0]
-    tot, cnt, zsq = (col.psum(t, bax) for t in (tot, cnt, zsq))
-    cnt = torch.clamp_min(cnt, 1.0)
-    return tot / cnt, {"ce": tot / cnt, "z_loss": zsq / cnt}
+    with span("repro_torch.head"):
+        pv = padded_vocab(cfg)
+        B, T, _ = hidden.shape
+        have = have or (None, None, None)
+        if mask is None:
+            mask = torch.ones((B, T), dtype=torch.float32,
+                              device=hidden.device)
+        C = _loss_chunk_size(cfg, T)
+        params, specs = gathered_logits_weight(cfg, params, specs or {}, have)
+        tot = hidden.new_zeros((), dtype=torch.float32)
+        cnt = hidden.new_zeros((), dtype=torch.float32)
+        zsq = hidden.new_zeros((), dtype=torch.float32)
+        for s in range(0, T, C):
+            y = labels[:, s:s + C].long()
+            logits, ls = lm_logits(cfg, params, hidden[:, s:s + C], pv,
+                                   have=have, specs=specs)
+            logits, vax = logits.float(), spec_axes(ls, 3)[2]
+            if vax:
+                lse, gold = _vocab_parallel_lse_gold(logits, y, vax)
+            else:
+                lse = torch.logsumexp(logits, dim=-1)
+                gold = logits.gather(-1, y[..., None])[..., 0]
+            m_c = mask[:, s:s + C]
+            tot = tot + ((lse - gold) * m_c).sum()
+            cnt = cnt + m_c.sum()
+            zsq = zsq + (lse.square() * m_c).sum()
+        bax = spec_axes(have, 3)[0]
+        tot, cnt, zsq = (col.psum(t, bax) for t in (tot, cnt, zsq))
+        cnt = torch.clamp_min(cnt, 1.0)
+        return tot / cnt, {"ce": tot / cnt, "z_loss": zsq / cnt}
 
 
 def lm_loss(cfg, params, batch, batch_specs=None):

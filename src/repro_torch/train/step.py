@@ -35,6 +35,7 @@ from repro_torch.train.optimizer import (AdamWState, adamw,
 from repro_torch.train.schedule import warmup_cosine
 from repro_torch.train.state import TrainState
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils.timing import span
 
 
 def resolve_device(device) -> torch.device:
@@ -95,19 +96,24 @@ def build_train_step(cfg, *, device="cuda", mesh=None, peak_lr=3e-4,
         batch = batch_to_device(batch, device)
         leaves, treedef = tree_flatten(state.params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
-        loss, metrics = model.loss(tree_unflatten(treedef, leaves), batch)
+        with span("repro_torch.step.forward"):
+            loss, metrics = model.loss(tree_unflatten(treedef, leaves), batch)
         # a leaf the loss does not read (a zero-length layer stack, as in
         # a MoE config cut to its leading dense layers) has a zero gradient;
         # nothing else keeps the raw gradients, so clipping frees them
-        grads = tree_unflatten(treedef, [
-            torch.zeros_like(p) if g is None else g for p, g in zip(
-                leaves, torch.autograd.grad(loss, leaves, allow_unused=True))])
-        if grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, grad_clip)
-        else:
-            gnorm = global_norm(grads)
-        new_params, opt = opt_update(grads, AdamWState(state.mu, state.nu),
-                                     state.params, state.step)
+        with span("repro_torch.step.backward"):
+            grads = tree_unflatten(treedef, [
+                torch.zeros_like(p) if g is None else g for p, g in zip(
+                    leaves, torch.autograd.grad(loss, leaves,
+                                                allow_unused=True))])
+        with span("repro_torch.step.optimizer"):
+            if grad_clip:
+                grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            else:
+                gnorm = global_norm(grads)
+            new_params, opt = opt_update(grads,
+                                         AdamWState(state.mu, state.nu),
+                                         state.params, state.step)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = gnorm
         metrics["lr"] = sched(state.step)
@@ -164,25 +170,32 @@ def _sharded_step(cfg, model, device, mesh, sched, opt_update, grad_clip):
         leaves, treedef = tree_flatten(params)
         local = [x.detach().requires_grad_(True) for x in leaves]
         with use_mesh(mesh):
-            loss, metrics = model.loss(tree_unflatten(treedef, local),
-                                       batch, batch_specs)
-            raw = torch.autograd.grad(loss / n_ranks, local,
-                                      allow_unused=True)
-            with torch.no_grad():
-                grads = []
-                for p, g, spec in zip(local, raw, spec_leaves):
-                    g = torch.zeros_like(p) if g is None else g
-                    used = {a for ax in spec_axes(spec, p.ndim) for a in ax}
-                    rep = tuple(a for a in axes if a not in used)
-                    grads.append(col.psum(g, rep) if rep else g)
-                del raw
-                gnorm = sharded_global_norm(grads, spec_leaves)
-            grads = tree_unflatten(treedef, grads)
-            if grad_clip:
-                grads, gnorm = clip_by_global_norm(grads, grad_clip, gnorm)
-            new_params, opt = opt_update(
-                grads, AdamWState(mu, nu),
-                tree_unflatten(treedef, [p.detach() for p in local]), step)
+            with span("repro_torch.step.forward"):
+                loss, metrics = model.loss(tree_unflatten(treedef, local),
+                                           batch, batch_specs)
+            with span("repro_torch.step.backward"):
+                raw = torch.autograd.grad(loss / n_ranks, local,
+                                          allow_unused=True)
+                with torch.no_grad():
+                    grads = []
+                    for p, g, spec in zip(local, raw, spec_leaves):
+                        g = torch.zeros_like(p) if g is None else g
+                        used = {a for ax in spec_axes(spec, p.ndim)
+                                for a in ax}
+                        rep = tuple(a for a in axes if a not in used)
+                        grads.append(col.psum(g, rep) if rep else g)
+                    del raw
+            with span("repro_torch.step.optimizer"):
+                with torch.no_grad():
+                    gnorm = sharded_global_norm(grads, spec_leaves)
+                grads = tree_unflatten(treedef, grads)
+                if grad_clip:
+                    grads, gnorm = clip_by_global_norm(grads, grad_clip,
+                                                       gnorm)
+                new_params, opt = opt_update(
+                    grads, AdamWState(mu, nu),
+                    tree_unflatten(treedef, [p.detach() for p in local]),
+                    step)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = gnorm
         metrics["lr"] = sched(step)

@@ -1,30 +1,23 @@
-"""Wall-clock instrumentation for the Flor adaptive-checkpointing controller."""
+"""Timing: the program's profiler spans, and the EMAs of the Flor
+adaptive-checkpointing controller."""
 from __future__ import annotations
 
-import time
+import contextlib
+
+import torch
+from torch.autograd import profiler as _profiler
+
+_OFF = contextlib.nullcontext()
 
 
-class Stopwatch:
-    """Context-manager stopwatch. `elapsed` in seconds after the block."""
-
-    def __init__(self):
-        self.elapsed = 0.0
-        self._t0 = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self._t0
-        return False
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        self.elapsed = time.perf_counter() - self._t0
-        return self.elapsed
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    runs, so the range and the device work launched inside it share the
+    profiler's timeline; with no profiler, a shared null context after one
+    check (no dispatcher op, nothing in a fake-tensor trace)."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 class EMA:
