@@ -45,6 +45,12 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
      is timed beside ``scaled_dot_product_attention`` (with a
      ``causal_lower_right`` mask at Sq < Sk); quantize / dequantize beside
      their library peer where one call computes the function;
+   - the training backward of flash attention (``flash_wgmma_bwd.cu``,
+     replacing no TPU kernel) at granite-3-2b's two cell shapes and a
+     qwen3-14b layer: against ``flash_attention_bwd_ref`` on the forward's
+     o and lse (one output ulp plus 2e-3 of the largest entry), two calls
+     bit for bit, timed beside its bound, the plain version and SDPA's
+     backward, with the forward's time when it writes lse;
 3. phase M, mixtral-8x7b at its published widths cut from 32 layers to 1
    (one whole period: every layer is SWA + MoE), one 8192-token sequence
    a step, random weights from the seed made on the card (1.72 B
@@ -689,6 +695,7 @@ def kernel_phase(torch, dev, hbm_bps, cfg):
                                                  prevs)
     results.update(quantize_phase(torch, dev, gen, hbm_bps, state))
     results["flash_attention"] = flash_phase(torch, dev, gen, hbm_bps)
+    results["flash_attention_bwd"] = flash_bwd_phase(torch, dev, gen, hbm_bps)
     return results
 
 
@@ -988,6 +995,112 @@ def flash_phase(torch, dev, gen, hbm_bps) -> dict:
     say(f"kernel flash_attention: {len(cases)} cases within tolerance of "
         f"the plain version ({launches} launches: {json.dumps(by_route)})")
     return dict(main, launches=launches, routes=by_route, cases=rows)
+
+
+# name, B (timed), B (checked against the plain version, which holds every
+# score matrix in f32 several times), H, KV, S, d, dtype; causal, Sq = Sk
+FLASH_BWD_CASES = [
+    ("granite-3-2b record_4k layer", 4, 1, 32, 8, 4096, 64, "bfloat16"),
+    ("granite-3-2b record_512 layer", 32, 32, 32, 8, 512, 64, "bfloat16"),
+    ("qwen3-14b GQA layer", 1, 1, 40, 8, 2048, 128, "bfloat16"),
+]
+# kernel against plain version, both f32 sums from the same 16-bit inputs,
+# o and lse: one output ulp (rtol 1e-2) plus 2e-3 of the largest entry;
+# the forward's lse (f32, exp and log of numbers near 10) within 1e-4
+FLASH_BWD_TOL = (1e-2, 2e-3)
+FLASH_LSE_ATOL = 1e-4
+
+
+def flash_bwd_phase(torch, dev, gen, hbm_bps) -> dict:
+    """The training kernels on q, k, v and dO in the model's layout ([B,
+    S, heads, d] seen through a transpose, as ``models/attention.py`` hands
+    them over): the forward's o and lse against ``flash_attention_ref``
+    (``FLASH_BWD_TOL``, ``FLASH_LSE_ATOL``), then the backward
+    (``ops.flash_attention_bwd``: D, dK / dV, dQ kernels) against
+    ``flash_attention_bwd_ref`` on that o and lse within ``FLASH_BWD_TOL``,
+    two calls bit for bit, then timed at the cells' shapes beside its bound
+    (10 d flops per visible pair), the plain version (at the checked batch,
+    scaled to the timed one) and, as the library yardstick only,
+    ``scaled_dot_product_attention``'s backward."""
+    from repro_torch.kernels import ops, ref
+
+    F = torch.nn.functional
+    rtol, atol_max = FLASH_BWD_TOL
+    ops.reset_launch_counts()
+    rows, main = [], None
+    for name, B, Bc, H, KV, S, d, dt in FLASH_BWD_CASES:
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn(B, S, H, d, generator=gen, device=dev)
+                 .to(dtype).transpose(1, 2) for _ in range(2))
+        k, v = (torch.randn(B, S, KV, d, generator=gen, device=dev)
+                .to(dtype).transpose(1, 2) for _ in range(2))
+        o, lse = ops.flash_attention(q, k, v, return_lse=True)
+        cut = [t[:Bc] for t in (q, k, v, o, do, lse)]
+        want_o, want_lse = ref.flash_attention_ref(*cut[:3], return_lse=True)
+        g, w = cut[3].float(), want_o.float()
+        excess = float(((g - w).abs() - rtol * w.abs()).max())
+        lse_err = max_abs_diff(torch, cut[5], want_lse)
+        if not bool(torch.isfinite(g).all()) \
+                or excess > atol_max * float(w.abs().max()) \
+                or lse_err > FLASH_LSE_ATOL:
+            fail(f"flash_attention with lse on {name} off the plain version:"
+                 f" o excess {excess:.3e} over rtol {rtol}, lse {lse_err:.3e}")
+        fwd_err = max_abs_diff(torch, g, w)
+        del want_o, want_lse, g, w
+        got = ops.flash_attention_bwd(q, k, v, o, do, lse)
+        again = ops.flash_attention_bwd(q, k, v, o, do, lse)
+        if not all(bits_equal(torch, a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_bwd on {name}: two calls differ")
+        want = ref.flash_attention_bwd_ref(*cut)
+        err = 0.0
+        for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+            g, w = g[:Bc].float(), w.float()
+            excess = float(((g - w).abs() - rtol * w.abs()).max())
+            if not bool(torch.isfinite(g).all()) \
+                    or excess > atol_max * float(w.abs().max()):
+                fail(f"flash_attention_bwd {what} on {name} off the plain "
+                     f"version: excess {excess:.3e} over rtol {rtol}")
+            err = max(err, max_abs_diff(torch, g, w))
+        del want
+        pairs = B * H * S * (S + 1) / 2
+        flops = 10.0 * d * pairs
+        # reads q, k, v, o, dO and lse, writes dq, dk and dv
+        nbytes = (4 * B * H * S * d + 4 * B * KV * S * d) * q.element_size() \
+            + B * H * S * 4
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+        r = timed_pass(
+            torch, hbm_bps,
+            [lambda: ops.flash_attention_bwd(q, k, v, o, do, lse)],
+            [lambda: ref.flash_attention_bwd_ref(*cut)], nbytes, flops, err,
+            peak_ops=BF16_OPS_PER_S,
+            library_calls=[lambda: torch.autograd.grad(
+                out, (qs, ks, vs), do, retain_graph=True)])
+        r["plain_ms"] *= B / Bc
+        fwd = time_calls(torch, [lambda: ops.flash_attention(
+            q, k, v, return_lse=True)])["ms"]
+        say(f"kernel flash_attention_bwd {name} {dt} [B {B}, H {H}, KV {KV}, "
+            f"S {S}, d {d}, causal, model layout]: forward o max_abs_err "
+            f"{fwd_err:.3e}, lse {lse_err:.3e}; {r['ms']:.4f} ms on the card, "
+            f"{flops / r['ms'] / 1e9:.2f} TFLOP/s (10 d a visible pair), "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.2f} ms (B {Bc}, x{B // Bc}), SDPA backward "
+            f"{r['library_ms']:.4f} ms; forward with lse {fwd:.4f} ms; "
+            f"max_abs_err {err:.3e}; same bits twice")
+        rows.append(dict(case=name, dtype=dt, ms=r["ms"], fwd_ms=fwd,
+                         fwd_max_abs_err=fwd_err, lse_max_abs_err=lse_err,
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"], library_ms=r["library_ms"],
+                         max_abs_err=err))
+        if main is None:
+            main = r
+        del q, k, v, o, do, lse, got, again, cut, qs, ks, vs, out
+        torch.cuda.empty_cache()
+    launches = ops.launch_counts()["flash_attention_bwd"]
+    say(f"kernel flash_attention_bwd: {len(rows)} cases within tolerance of "
+        f"the plain version ({launches} launches)")
+    return dict(main, launches=launches, cases=rows)
 
 
 # ---------------------------------------------------------- model check --
@@ -4050,19 +4163,24 @@ def phase_t(torch, dev, hbm_bps, serve_times, run_dir, store,
 
 # ------------------------------------------------------------------ main --
 # kernel -> (CUDA source, the TPU kernel it replaces, its path); "record"
-# kernels must have launched on paths A-C and A2-R3, "ops" kernels report the
-# launches of their own phase (kernels/ops.py is their only entry point)
+# kernels must have launched on the record paths and "train" kernels in the
+# train steps of the paths (each path's counts are taken after it resets
+# them), "ops" kernels report the launches of their own phase
+# (kernels/ops.py is their only entry point)
 KERNELS = {
     "fingerprint": ("chunk_delta.cu", "chunk_delta.py:37", "record"),
     "fingerprint_changed": ("chunk_delta.cu", "chunk_delta.py:64", "record"),
     "gather_quantize": ("quantize.cu", "quantize.py:59", "record"),
     "gather_quantize4": ("quantize.cu", "quantize.py:107", "record"),
-    # the main case (qwen3-14b layer, bf16) runs the tensor-core kernel; f32
-    # and other head dims the CUDA-core one in flash_attention.cu
-    "flash_attention": ("flash_wgmma.cu", "flash_attention.py:68", "ops"),
+    # the train step's attention (bf16, head dim 64 / 128) and the ops
+    # phase's main case run the tensor-core kernel; f32 and other head dims
+    # the CUDA-core one in flash_attention.cu
+    "flash_attention": ("flash_wgmma.cu", "flash_attention.py:68", "train"),
     "quantize_rows": ("quantize.cu", "quantize.py:31", "ops"),
     "dequantize_rows": ("quantize.cu", "quantize.py:140", "ops"),
     "changed_mask": ("chunk_delta.cu", "chunk_delta.py:95", "ops"),
+    # no TPU kernel: the reference's flash kernel has no VJP
+    "flash_attention_bwd": ("flash_wgmma_bwd.cu", None, "train"),
 }
 
 
@@ -4070,13 +4188,14 @@ def kernels_line(results: dict, paths: dict) -> list:
     line = []
     for k, (src, tpu, path) in KERNELS.items():
         r = results[k]
-        n = sum(c.get(k, 0) for c in paths.values()) if path == "record" \
-            else r["launches"]
+        n = sum(c.get(k, 0) for c in paths.values()) \
+            if path in ("record", "train") else r["launches"]
         if n <= 0:
             fail(f"kernel {k} was never launched on its path ({path})")
         entry = {"name": k, "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/" + src,
-                 "replaces": "src/repro/kernels/" + tpu, "launches": n,
+                 "replaces": "src/repro/kernels/" + tpu if tpu else None,
+                 "launches": n,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4091,7 +4210,7 @@ def kernels_line(results: dict, paths: dict) -> list:
 
 
 # kernels of this slice's path: their ptxas -v report is printed after the build
-NEW_KERNELS = ("fp_kernel",)
+NEW_KERNELS = ("fa_bwd_",)
 
 
 def ptxas_report(build_log: dict, names) -> list:

@@ -379,7 +379,7 @@ template <int DT>
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const float* __restrict__ part_o,
                const float* __restrict__ part_ml, void* __restrict__ o,
-               long long rows, int d, int n_split) {
+               float* __restrict__ lse, long long rows, int d, int n_split) {
   const long long e = static_cast<long long>(blockIdx.x) * THREADS +
                       threadIdx.x;
   if (e >= rows * d) return;
@@ -397,6 +397,7 @@ combine_kernel(const float* __restrict__ part_o,
     acc += w * part_o[s * rows * d + e];
   }
   store<DT>(o, e, acc / fmaxf(l, 1e-30f));
+  if (lse != nullptr && e == r * d) lse[r] = m_max + logf(l);
 }
 
 template <int DT, int DMAX, bool ALIAS>
@@ -498,21 +499,26 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // part_o [n_split, rows, d], part_ml [n_split, rows, 2] (f32) -> o [rows, d]
-// in dtype (code 0/1/2). Returns cudaGetLastError().
+// in dtype (code 0/1/2) and, when lse is not null, each row's log-sum-exp
+// max m + log(sum w l) into lse [rows] (f32). Returns cudaGetLastError().
 extern "C" int fa_combine_launch(const void* part_o, const void* part_ml,
-                                 void* o, long long rows, int d, int n_split,
-                                 int dtype, void* stream) {
+                                 void* o, void* lse, long long rows, int d,
+                                 int n_split, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n = rows * d;
   const unsigned blocks = static_cast<unsigned>((n + THREADS - 1) / THREADS);
   const float* po = static_cast<const float*>(part_o);
   const float* pml = static_cast<const float*>(part_ml);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 0)
-    combine_kernel<0><<<blocks, THREADS, 0, s>>>(po, pml, o, rows, d, n_split);
+    combine_kernel<0><<<blocks, THREADS, 0, s>>>(po, pml, o, ls, rows, d,
+                                                      n_split);
   else if (dtype == 1)
-    combine_kernel<1><<<blocks, THREADS, 0, s>>>(po, pml, o, rows, d, n_split);
+    combine_kernel<1><<<blocks, THREADS, 0, s>>>(po, pml, o, ls, rows, d,
+                                                      n_split);
   else if (dtype == 2)
-    combine_kernel<2><<<blocks, THREADS, 0, s>>>(po, pml, o, rows, d, n_split);
+    combine_kernel<2><<<blocks, THREADS, 0, s>>>(po, pml, o, ls, rows, d,
+                                                      n_split);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -19,11 +19,13 @@
 //   and V tiles of 64 keys through a 2-stage ring in shared memory, each
 //   stage guarded by a "full" mbarrier (TMA transaction bytes) and an
 //   "empty" one (every consumer thread arrives when done with the stage).
-// - The tensor maps are 3-D ([heads][rows][d]) with 128-byte swizzle: a
-//   box is 64 elements (128 bytes) by 64 or 128 rows, so d 128 comes in two
-//   column panels. Rows past Sq or Sk read as zeros, never another head's.
-//   The wgmma descriptors use the same 128-byte swizzle (8-row atoms of
-//   1024 bytes, every panel 1024-aligned).
+// - The tensor maps are 4-D ([batch][heads][rows][d] by the tensor's own
+//   strides, so q, k, v and o may be the model's [B, S, H, d] seen through
+//   a transpose) with 128-byte swizzle: a box is 64 elements (128 bytes)
+//   by 64 or 128 rows of one head, so d 128 comes in two column panels.
+//   Rows past Sq or Sk read as zeros, never another head's. The wgmma
+//   descriptors use the same 128-byte swizzle (8-row atoms of 1024 bytes,
+//   every panel 1024-aligned).
 // - S = Q K^T: wgmma m64n64k16, A (Q) and B (K) both K-major in shared
 //   memory, f32 accumulator in registers, d / 16 steps; a k-step advances
 //   the descriptors by 32 bytes inside the swizzle atom, a panel by its
@@ -47,15 +49,14 @@
 //   above the diagonal are skipped only in query tiles whose every row
 //   sees key 0, so rows that see no key still score every key at -1e30.
 // - Query tiles are issued longest first (causal work grows with the row).
+// - The training step's backward (flash_wgmma_bwd.cu) needs each row's
+//   log-sum-exp: lse = m + log(l), written beside o when a pointer is
+//   passed (by the combine kernel under a key split). A row that sees no
+//   key reads lse = -1e30 (log(l) is lost below its ulp); the backward
+//   knows such rows by their position.
 // GQA heads are not packed into one CTA: each query head re-reads its KV
 // head's tiles (from L2).
-#include <cstdint>
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <math.h>
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -64,183 +65,6 @@ constexpr int BQ = 64 * NWG;           // query rows per CTA
 constexpr int BK = 64;                 // keys per tile
 constexpr int STAGES = 2;              // K/V ring depth
 constexpr int THREADS = 128 * (NWG + 1);
-constexpr int PANEL = 64;              // elements of one 128-byte row
-constexpr int ROW_BYTES = 128;
-constexpr float MASKED = -1e30f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of the given parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin accumulator registers around the asynchronous wgmma: the compiler
-// must not move their reads or writes across the fence / wait.
-__device__ __forceinline__ void fence_regs(float (&r)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define ACC_REGS                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
-  "%30, %31}"
-#define ACC_OPS(d)                                                            \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31])
-
-// d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T: A and B K-major in shared
-// memory (descriptors), no transpose. scale_d 0 overwrites d.
-#define WGMMA_SS(NAME, TY)                                                    \
-  __device__ __forceinline__ void NAME(float (&d)[32], uint64_t da,           \
-                                       uint64_t db, int scale_d) {            \
-    asm volatile("{\n"                                                        \
-                 ".reg .pred p;\n"                                            \
-                 "setp.ne.b32 p, %34, 0;\n"                                   \
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
-                 ACC_REGS ", %32, %33, p, 1, 1, 0, 0;\n"                      \
-                 "}\n"                                                        \
-                 : ACC_OPS(d)                                                 \
-                 : "l"(da), "l"(db), "r"(scale_d));                           \
-  }
-// d += A B: A [64 x 16] from registers (4 x 32-bit a thread), B from shared
-// memory through its descriptor, MN-major (transposed, tnspB = 1).
-#define WGMMA_RS(NAME, TY)                                                    \
-  __device__ __forceinline__ void NAME(float (&d)[32], const uint32_t* a,     \
-                                       uint64_t db) {                         \
-    asm volatile("{\n"                                                        \
-                 ".reg .pred p;\n"                                            \
-                 "setp.ne.b32 p, %37, 0;\n"                                   \
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
-                 ACC_REGS ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"        \
-                 "}\n"                                                        \
-                 : ACC_OPS(d)                                                 \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),       \
-                   "r"(1));                                                   \
-  }
-
-WGMMA_SS(wgmma_ss_bf16, "bf16")
-WGMMA_SS(wgmma_ss_f16, "f16")
-WGMMA_RS(wgmma_rs_bf16, "bf16")
-WGMMA_RS(wgmma_rs_f16, "f16")
-
-template <int F16>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if (F16)
-    wgmma_ss_f16(d, da, db, scale_d);
-  else
-    wgmma_ss_bf16(d, da, db, scale_d);
-}
-
-template <int F16>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t db) {
-  if (F16)
-    wgmma_rs_f16(d, a, db);
-  else
-    wgmma_rs_bf16(d, a, db);
-}
-
-// (x0, x1) -> packed 16-bit pairs hi = fl16(x), lo = fl16(x - hi); the low
-// half of each word holds x0 (the lower column)
-template <int F16>
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  if (F16) {
-    const __half2 h = __floats2half2_rn(x0, x1);
-    const float2 hf = __half22float2(h);
-    const __half2 l = __floats2half2_rn(x0 - hf.x, x1 - hf.y);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = *reinterpret_cast<const uint32_t*>(&l);
-  } else {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    const float2 hf = __bfloat1622float2(h);
-    const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = *reinterpret_cast<const uint32_t*>(&l);
-  }
-}
-
-template <int F16>
-__device__ __forceinline__ uint32_t pack_out(float x0, float x1) {
-  if (F16) {
-    const __half2 h = __floats2half2_rn(x0, x1);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 
 template <int D, int F16>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -248,8 +72,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, void* __restrict__ o,
                 float* __restrict__ part_o, float* __restrict__ part_ml,
-                int B, int H, int KV, int Sq, int Sk, float scale, int causal,
-                int n_split, int per) {
+                float* __restrict__ lse, Layout lo, int B, int H, int KV,
+                int Sq, int Sk, float scale, int causal, int n_split,
+                int per) {
   constexpr int NP = D / PANEL;                   // column panels
   constexpr int Q_BYTES = BQ * D * 2;
   constexpr int TILE_BYTES = BK * D * 2;          // one K (or V) tile
@@ -293,8 +118,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(&qbar, Q_BYTES);
 #pragma unroll
       for (int p = 0; p < NP; ++p)
-        tma_load_3d(sQ + p * BQ * ROW_BYTES, &tq, &qbar, p * PANEL, row0,
-                    b * H + h);
+        tma_load_4d(sQ + p * BQ * ROW_BYTES, &tq, &qbar, p * PANEL, row0, h,
+                    b);
       for (int it = 0; it < n_it; ++it) {
         const int s = it % STAGES;
         if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
@@ -302,10 +127,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int key = (kt0 + it) * BK;
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
-          tma_load_3d(sK + s * TILE_BYTES + p * BK * ROW_BYTES, &tk, &full[s],
-                      p * PANEL, key, b * KV + kvh);
-          tma_load_3d(sV + s * TILE_BYTES + p * BK * ROW_BYTES, &tv, &full[s],
-                      p * PANEL, key, b * KV + kvh);
+          tma_load_4d(sK + s * TILE_BYTES + p * BK * ROW_BYTES, &tk, &full[s],
+                      p * PANEL, key, kvh, b);
+          tma_load_4d(sV + s * TILE_BYTES + p * BK * ROW_BYTES, &tv, &full[s],
+                      p * PANEL, key, kvh, b);
         }
       }
     }
@@ -437,8 +262,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (row >= Sq) continue;
     if (n_split == 1) {
       const float den = fmaxf(l[r], 1e-30f);
+      if (lse != nullptr && cq == 0) lse[bh * Sq + row] = m[r] + logf(l[r]);
       uint32_t* dst = reinterpret_cast<uint32_t*>(
-          static_cast<uint16_t*>(o) + (bh * Sq + row) * D);
+          static_cast<uint16_t*>(o) + b * lo.b + h * lo.h + row * lo.s);
 #pragma unroll
       for (int p = 0; p < NP; ++p)
 #pragma unroll
@@ -463,97 +289,56 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, found in the libcuda.so.1 that the CUDA runtime
-// has loaded: no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h) fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// [heads][rows][d] 16-bit tensor -> boxes of 64 columns x box_rows rows,
-// 128-byte swizzle, zero fill out of bounds
-bool make_map(CUtensorMap* map, const void* ptr, int f16, int d, int rows,
-              int heads, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(rows) * d * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(PANEL),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map,
-            f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-            3, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, int F16>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, void* o, float* part_o, float* part_ml,
-           int B, int H, int KV, int Sq, int Sk, float scale, int causal,
-           int n_split, int per, cudaStream_t s) {
+           float* lse, Layout lo, int B, int H, int KV, int Sq, int Sk,
+           float scale, int causal, int n_split, int per, cudaStream_t s) {
   const int smem = BQ * D * 2 + 2 * STAGES * BK * D * 2 + 1024;
   cudaError_t e = cudaFuncSetAttribute(
-      fa_wgmma_kernel<D, F16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fa_wgmma_kernel<D, F16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(((Sq + BQ - 1) / BQ) * n_split, H, B);
   fa_wgmma_kernel<D, F16><<<grid, THREADS, smem, s>>>(
-      tq, tk, tv, o, part_o, part_ml, B, H, KV, Sq, Sk, scale, causal,
-      n_split, per);
+      tq, tk, tv, o, part_o, part_ml, lse, lo, B, H, KV, Sq, Sk, scale,
+      causal, n_split, per);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q [B, H, Sq, d], k/v [B, KV, Sk, d]: contiguous, 16-byte aligned, one
-// 16-bit dtype (1 = bf16, 2 = f16), d 64 or 128, H % KV == 0. With n_split
-// 1 writes o [B, H, Sq, d]; else split s covers key tiles [s per, (s + 1)
-// per) and writes part_o [n_split, B, H, Sq, d] and part_ml [n_split, B, H,
-// Sq, 2] (f32) for fa_combine_launch. Returns the cudaError_t of the launch,
-// or cudaErrorInvalidValue for a shape it does not take or a tensor map the
-// encode call refuses.
+// q, o [B, H, Sq, d], k/v [B, KV, Sk, d], one 16-bit dtype (1 = bf16, 2 =
+// f16), d 64 or 128, H % KV == 0; each laid out by its three element
+// strides in lay (batch, head, row: q, k, v, o in turn), its head dim
+// contiguous, every stride a multiple of 8 and every pointer of 16 bytes.
+// With n_split 1 writes o and, when lse is not null, each row's f32
+// log-sum-exp m + log(l) of the scaled scores into lse [B, H, Sq]
+// (contiguous); else split s covers key tiles [s per, (s + 1) per) and
+// writes part_o [n_split, B, H, Sq, d] and part_ml [n_split, B, H, Sq, 2]
+// (f32) for fa_combine_launch (o contiguous), which writes lse.
+// Returns the cudaError_t of the launch, or cudaErrorInvalidValue for a
+// shape it does not take or a tensor map the encode call refuses.
 extern "C" int fa_wgmma_launch(const void* q, const void* k, const void* v,
-                               void* o, void* part_o, void* part_ml, int B,
-                               int H, int KV, int Sq, int Sk, int d,
-                               float scale, int causal, int dtype,
-                               int n_split, int per, void* stream) {
+                               void* o, void* part_o, void* part_ml,
+                               void* lse, const long long* lay, int B, int H,
+                               int KV, int Sq, int Sk, int d, float scale,
+                               int causal, int dtype, int n_split, int per,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((dtype != 1 && dtype != 2) || (d != 64 && d != 128) || n_split < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int f16 = dtype == 2;
+  const Layout lq{lay[0], lay[1], lay[2]}, lk{lay[3], lay[4], lay[5]},
+      lv{lay[6], lay[7], lay[8]}, lo{lay[9], lay[10], lay[11]};
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, f16, d, Sq, B * H, BQ) ||
-      !make_map(&tk, k, f16, d, Sk, B * KV, BK) ||
-      !make_map(&tv, v, f16, d, Sk, B * KV, BK))
+  if (!make_map(&tq, q, f16, d, Sq, H, B, lq, BQ) ||
+      !make_map(&tk, k, f16, d, Sk, KV, B, lk, BK) ||
+      !make_map(&tv, v, f16, d, Sk, KV, B, lv, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  float* po = static_cast<float*>(part_o);
-  float* pml = static_cast<float*>(part_ml);
-  if (d == 64)
-    return f16 ? launch<64, 1>(tq, tk, tv, o, po, pml, B, H, KV, Sq, Sk,
-                               scale, causal, n_split, per, s)
-               : launch<64, 0>(tq, tk, tv, o, po, pml, B, H, KV, Sq, Sk,
-                               scale, causal, n_split, per, s);
-  return f16 ? launch<128, 1>(tq, tk, tv, o, po, pml, B, H, KV, Sq, Sk, scale,
-                              causal, n_split, per, s)
-             : launch<128, 0>(tq, tk, tv, o, po, pml, B, H, KV, Sq, Sk, scale,
-                              causal, n_split, per, s);
+  auto run = d == 64 ? (f16 ? launch<64, 1> : launch<64, 0>)
+                     : (f16 ? launch<128, 1> : launch<128, 0>);
+  return run(tq, tk, tv, o, static_cast<float*>(part_o),
+             static_cast<float*>(part_ml), static_cast<float*>(lse), lo, B, H,
+             KV, Sq, Sk, scale, causal, n_split, per, s);
 }

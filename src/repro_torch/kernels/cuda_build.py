@@ -13,7 +13,8 @@ need IEEE division and ``rintf`` to match the plain versions byte for byte,
 and flash attention ``expf``. No library beyond the CUDA runtime is linked:
 the tensor-core flash kernel (``flash_wgmma.cu``) finds
 ``cuTensorMapEncodeTiled`` in the already loaded ``libcuda.so.1`` with
-``dlsym``.
+``dlsym``; it and the backward (``flash_wgmma_bwd.cu``) share the header
+``flash_wgmma.cuh``, which the hash covers too.
 """
 from __future__ import annotations
 
@@ -30,12 +31,15 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_ROOT = os.path.join(REPO_ROOT, "build", "repro_torch_kernels")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("chunk_delta", "quantize", "flash_attention", "flash_wgmma")
+SOURCES = ("chunk_delta", "quantize", "flash_attention", "flash_wgmma",
+           "flash_wgmma_bwd")
+HEADERS = ("flash_wgmma.cuh",)          # included by the sources above
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 # C signatures of the extern "C" launchers; every launcher returns the
 # cudaError_t of its launch (0 = success)
 SIGNATURES = {
@@ -47,10 +51,12 @@ SIGNATURES = {
                  "dq_launch": [_P, _P, _I, _I, _L, _I, _P, _P]},
     "flash_attention": {"fa_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _F, _I, _I, _I, _I, _P],
-                        "fa_combine_launch": [_P, _P, _P, _L, _I, _I, _I,
-                                              _P]},
-    "flash_wgmma": {"fa_wgmma_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                        _I, _I, _I, _F, _I, _I, _I, _I, _P]},
+                        "fa_combine_launch": [_P, _P, _P, _P, _L, _I, _I,
+                                              _I, _P]},
+    "flash_wgmma": {"fa_wgmma_launch": [_P] * 7 + [_LP] + [_I] * 6
+                    + [_F] + [_I] * 4 + [_P]},
+    "flash_wgmma_bwd": {"fa_wgmma_bwd_launch": [_P] * 10 + [_LP] + [_I] * 6
+                        + [_F, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
@@ -61,7 +67,7 @@ build_log: dict[str, str] = {}       # ptxas resource report per source
 launches = dict.fromkeys(
     ("fingerprint", "fingerprint_changed", "changed_mask", "gather_quantize",
      "gather_quantize4", "quantize_rows", "dequantize_rows",
-     "flash_attention"), 0)
+     "flash_attention", "flash_attention_bwd"), 0)
 _count_lock = threading.Lock()       # the checkpoint writer thread launches too
 
 
@@ -79,8 +85,8 @@ def _nvcc() -> str:
 
 def _build_dir() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+    for name in (*(s + ".cu" for s in SOURCES), *HEADERS):
+        with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
 

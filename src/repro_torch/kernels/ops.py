@@ -18,7 +18,8 @@ from repro_torch.kernels.chunk_delta import (TILE_G, changed_mask_cuda,
                                              fingerprint_changed_cuda,
                                              fingerprint_cuda, grid_rows,
                                              word_view)
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.quantize import (Q4_BLOCK, Q8_BLOCK,
                                           dequantize_rows_cuda,
                                           gather_quantize4_cuda,
@@ -26,6 +27,7 @@ from repro_torch.kernels.quantize import (Q4_BLOCK, Q8_BLOCK,
                                           quantize_rows_cuda)
 from repro_torch.kernels.ref import (changed_mask_ref, dequantize_ref,
                                      fingerprint_changed_ref, fingerprint_ref,
+                                     flash_attention_bwd_ref,
                                      flash_attention_ref,
                                      gather_quantize4_ref, gather_quantize_ref,
                                      quantize_ref)
@@ -217,12 +219,47 @@ def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor, shape,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale=None) -> torch.Tensor:
+                    causal: bool = True, scale=None,
+                    return_lse: bool = False):
     """GQA attention forward: q [B,H,Sq,d], k/v [B,KV,Sk,d] -> [B,H,Sq,d]
-    in q's dtype (causal mask aligned to the last key, as the reference)."""
+    in q's dtype (causal mask aligned to the last key, as the reference);
+    with ``return_lse`` (o, lse [B,H,Sq] f32), what the backward takes."""
+    kw = dict(causal=causal, scale=scale, return_lse=return_lse)
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
-    return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        return flash_attention_cuda(q, k, v, **kw)
+    return flash_attention_ref(q, k, v, **kw)
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        scale=None):
+    """The backward of ``flash_attention``: (dq, dk, dv) in q's dtype from
+    the forward's inputs, its o and lse, and dO ``do``."""
+    kw = dict(causal=causal, scale=scale)
+    if q.is_cuda:
+        return flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    return flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = ``flash_attention(q, k, v)`` as one autograd node whose backward
+    is ``flash_attention_bwd``: the kernels on a CUDA tensor, their plain
+    versions on the CPU. It saves q, k, v, o and the f32 lse [B,H,Sq],
+    never a score matrix. ``apply(q, k, v, causal, scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(causal=causal, scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.to(q.dtype), lse,
+                                         **ctx.kw)
+        return dq, dk, dv, None, None
 
 
 def launch_counts() -> dict:

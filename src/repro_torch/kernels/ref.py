@@ -1,7 +1,8 @@
 """Plain-torch versions of the hand-written kernels (their references).
 
 Each function computes what its CUDA kernel computes (kernels/chunk_delta.py,
-kernels/quantize.py, kernels/flash_attention.py) with ordinary tensor ops, on
+kernels/quantize.py, kernels/flash_attention.py: the forward and the
+training backward) with ordinary tensor ops, on
 any device. The CPU path of
 ``kernels/ops.py`` runs these; ``chip_smoke.py`` holds every kernel against
 them on the card.
@@ -97,23 +98,83 @@ def dequantize_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale[:, None]
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
+def _causal_keep(Sq: int, Sk: int, device) -> torch.Tensor:
+    """[Sq, Sk] bool: key col visible to query row iff col <= row + Sk - Sq
+    (the causal mask aligned to the last key)."""
+    return torch.arange(Sk, device=device)[None, :] \
+        <= torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None,
+                        return_lse: bool = False):
     """q [B,H,Sq,d], k/v [B,KV,Sk,d] with H % KV == 0 -> [B,H,Sq,d] in q's
     dtype. f32 scores and softmax; the causal mask keeps col <= row +
     (Sk - Sq) and writes -1e30 elsewhere, so a fully masked row (Sq > Sk)
-    averages v uniformly."""
+    averages v uniformly. ``return_lse``: (o, lse [B,H,Sq] f32), lse = m +
+    log(l) of the scaled scores."""
     B, H, Sq, d = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     qg = q.reshape(B, KV, H // KV, Sq, d).to(torch.float32)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32))
     s = s * float(scale if scale is not None else 1.0 / np.sqrt(d))
     if causal:
-        keep = torch.arange(Sk, device=q.device)[None, :] \
-            <= torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-        s = torch.where(keep, s, torch.full((), -1e30, device=q.device))
+        s = torch.where(_causal_keep(Sq, Sk, q.device), s,
+                        torch.full((), -1e30, device=q.device))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", w, v.to(torch.float32))
-    return o.reshape(B, H, Sq, d).to(q.dtype)
+    o = o.reshape(B, H, Sq, d).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
+def split_pair_ref(x: torch.Tensor, dtype: torch.dtype):
+    """The kernels' hi + lo pair of f32 ``x`` in a 16-bit ``dtype``: hi =
+    fl16(x), lo = fl16(x - hi), both returned as f32. hi + lo is x to within
+    2**-16 relative (f16: plus its subnormal floor); in f32 lo is 0."""
+    hi = x.to(dtype).to(torch.float32)
+    return hi, (x - hi).to(dtype).to(torch.float32)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                            scale=None):
+    """The flash-attention backward's arithmetic in plain torch: (dq
+    [B,H,Sq,d], dk, dv [B,KV,Sk,d]) in q's dtype from q, k, v, the forward's
+    o and lse [B,H,Sq] (f32) and dO ``do``. D = rowsum(dO o) in f32 from
+    the stored o; P = exp(s scale - lse), dS = P (dP - D), dP = dO v^T, 0
+    where masked; a row that sees no key (causal, Sq > Sk) has P = 1/Sk
+    and dS = 0. P and dS enter their products as the hi + lo pair
+    (``split_pair_ref`` in q's dtype), every product summed in f32: dV = sum over the group's query
+    heads of P^T dO, dK = scale dS^T q, dQ = scale dS k."""
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G, f32, dt = H // KV, torch.float32, q.dtype
+    scale = float(scale if scale is not None else 1.0 / np.sqrt(d))
+    qg = q.reshape(B, KV, G, Sq, d).to(f32)
+    og = o.reshape(B, KV, G, Sq, d).to(f32)
+    dog = do.reshape(B, KV, G, Sq, d).to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    D = (dog * og).sum(dim=-1)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf) * scale
+    p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None].to(f32))
+    seen = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        seen = _causal_keep(Sq, Sk, q.device)
+        blind = (torch.arange(Sq, device=q.device) + (Sk - Sq) < 0)[:, None]
+        p = torch.where(seen, p, torch.where(
+            blind, torch.full((), 1.0 / Sk, dtype=f32, device=q.device),
+            torch.zeros((), dtype=f32, device=q.device)))
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, vf)
+    ds = torch.where(seen, p * (dp - D[..., None]),
+                     torch.zeros((), dtype=f32, device=q.device))
+    split = dt != f32                        # in f32 lo is 0
+    parts_p = split_pair_ref(p, dt) if split else (p,)
+    parts_ds = split_pair_ref(ds, dt) if split else (ds,)
+    dv = sum(torch.einsum("bkgqs,bkgqd->bksd", x, dog) for x in parts_p)
+    dk = sum(torch.einsum("bkgqs,bkgqd->bksd", x, qg) for x in parts_ds)
+    dq = sum(torch.einsum("bkgqs,bksd->bkgqd", x, kf) for x in parts_ds)
+    return ((dq * scale).reshape(B, H, Sq, d).to(dt), (dk * scale).to(dt),
+            dv.to(dt))
 
 
 def gather_quantize_ref(x: torch.Tensor, idx: torch.Tensor, block: int = 256):

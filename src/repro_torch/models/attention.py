@@ -1,16 +1,26 @@
 """Self-attention of the decoder families: GQA/MQA, sliding window, qk-norm,
-and the two softmax paths of the reference package — ``naive`` (one masked
+and three softmax paths — the reference package's ``naive`` (one masked
 softmax over the full score matrix) and ``chunked`` (online softmax over KV
-chunks, O(Sq*chunk) live scores).
+chunks, O(Sq*chunk) live scores), and ``flash``: ``ops.FlashAttention``,
+the hand-written flash kernels forward and backward.
 
 Layout conventions (the reference package's):
   q:      [B, S, KV, G, hd]   (G = num_heads // num_kv_heads; KV groups)
   k, v:   [B, S, KV, hd]
 
-Both paths are plain tensor ops, as in the reference package, where they
-run outside any Pallas kernel. ``attention_impl="pallas"`` falls through to
-the chunked path there and here. ``cross_attention`` is the decoder's view
-of the encoder (no mask, no rope).
+The naive and chunked paths are plain tensor ops, as in the reference
+package, where they run outside any Pallas kernel (its
+``attention_impl="pallas"`` falls through to the chunked path). Here
+``_impl`` sends self-attention to the flash path when the call allows it:
+``attention_impl`` "auto" or "pallas", the window None or at least S, the
+sequence not sharded, and q a bf16 / f16 CUDA tensor at head dim 64 or 128
+(the kernels' inputs), or "pallas" on the CPU, which runs the kernels'
+plain versions. Every other call runs the path it ran before: on the CPU
+"auto" is the reference's naive / chunked choice bit for bit. The flash
+path carries P and dS as a hi + lo pair of 16-bit values, as precise as
+float32 probabilities, whatever ``attention_probs_dtype`` says.
+``cross_attention`` is the decoder's view of the encoder (no mask, no
+rope).
 
 Serving: one layer's KV cache is ``{"k", "v": [B, Smax, KV, hd],
 "slot_pos": [Smax]}``, ``slot_pos`` holding the absolute position in each
@@ -23,7 +33,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.kernels.flash_attention import route as flash_route
+from repro_torch.kernels.ops import FlashAttention
 from repro_torch.models.layers import (apply_rope, cache_from_spec,
                                        dense_spec, dot, recomputed,
                                        rms_norm, row_parallel)
@@ -131,11 +144,14 @@ def _chunked_sdpa(q, k, v, causal, window, scale, chunk,
     return o.permute(0, 3, 1, 2, 4).to(q.dtype)          # [B,Sq,KV,G,hd]
 
 
-def _core(cfg, q, k, v, causal, window, scale):
+def _core(cfg, q, k, v, causal, window, scale, seq_sharded=False):
     """Softmax attention over local q [B,Sq,KV,G,hd] and k, v [B,Sk,KV,hd]:
-    the naive or the chunked path, as ``attention_impl`` picks."""
+    the flash, naive or chunked path, as ``_impl`` picks."""
     S = q.shape[1]
-    if _impl(cfg, S) == "naive":
+    impl = _impl(cfg, S, q, window, seq_sharded)
+    if impl == "flash":
+        return _flash(q, k, v, causal, scale)
+    if impl == "naive":
         return _sdpa(q, k, v, _keep(S, S, 0, 0, causal, window, q.device),
                      scale)
     return _chunked_sdpa(q, k, v, causal, window, scale, cfg.attention_chunk,
@@ -143,11 +159,34 @@ def _core(cfg, q, k, v, causal, window, scale):
                          remat_chunk=cfg.attention_remat_chunk)
 
 
-def _impl(cfg, S: int) -> str:
+def _impl(cfg, S: int, q=None, window=None, seq_sharded=False) -> str:
+    """"flash", "naive" or "chunked" for a self-attention over S positions.
+    Without ``q`` (the caller asks which plain path a sharded sequence
+    takes) the answer is never "flash"; nor for a fake q (the dry run's
+    traces, which have no memory for a kernel to read)."""
     impl = cfg.attention_impl
+    if impl in ("auto", "pallas") and q is not None and not seq_sharded \
+            and (window is None or window >= S) and not is_fake(q):
+        if q.is_cuda:
+            if flash_route(q.dtype, q.shape[-1]) == "wgmma":
+                return "flash"
+        elif impl == "pallas":
+            return "flash"
     if impl == "auto":
         impl = "chunked" if S > 2048 else "naive"
     return "naive" if impl == "naive" else "chunked"
+
+
+def _flash(q, k, v, causal, scale):
+    """``FlashAttention`` over q [B,S,KV,G,hd], k, v [B,S,KV,hd]: the
+    kernels take [B, H, S, hd] with head h in KV group h // G, which the
+    model's layout is through a transpose (the kernels read it by its
+    strides, no copy), and o [B,S,KV,G,hd] comes back the same way."""
+    B, S, KV, G, hd = q.shape
+    qh = q.reshape(B, S, KV * G, hd).transpose(1, 2)
+    o = FlashAttention.apply(qh, k.transpose(1, 2), v.transpose(1, 2),
+                             causal, scale)
+    return o.transpose(1, 2).reshape(B, S, KV, G, hd)
 
 
 def linear_index(axes) -> int:
@@ -240,7 +279,8 @@ def _attention(cfg, p, x, causal, window, rope, have, specs, kv_x=None,
                           device=q.device)
         o = _sdpa(q, k, v, keep, scale)
     else:
-        o = _core(cfg, q, k, v, causal, window, scale)
+        o = _core(cfg, q, k, v, causal, window, scale,
+                  seq_sharded=bool(sax))
     o = o.reshape(o.shape[0], S, -1, hd)           # heads laid out as q's KV
     o_have = (qs[0], None, qs[2], None)
     heads = spec_axes(o_have, 4)[2] or wo_h

@@ -683,7 +683,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     ops.dequantize_blocks(*ops.quantize_blocks(x), x.shape, x.dtype)
     ops.flash_attention(qkv, qkv, qkv)
     assert set(ops.launch_counts().values()) == {0}
-    assert len(ops.launch_counts()) == 8
+    assert len(ops.launch_counts()) == 9
 
 
 @pytest.mark.cuda
