@@ -2,7 +2,8 @@
 limits (``limits/<cell>.json``: {number: limit}).
 
 From the first steps, which set-up drives through the window's own call
-and feed and which the reference follows from the same weights and ids:
+and feed and which the reference follows from the same weights and ids
+(and, in a sparse model, the program's own choices of experts):
 
 * ``loss_gap``: the largest |program - reference| / |reference| of a
   step's loss;
@@ -14,7 +15,18 @@ and feed and which the reference follows from the same weights and ids:
   out leaves whose reference gradient is under a thousandth of the median
   leaf's (they move by round-off alone);
 * ``drop_gap`` (a sparse model): the largest absolute gap of a step's
-  share of the choices dropped past capacity.
+  share of the choices dropped past capacity;
+* ``route_gap`` (a sparse model): the largest over steps of the
+  reference's route gap (``reference.model.moe``): where the program's
+  choices, which the reference follows, fall short of the reference's own
+  top k in the reference's probabilities;
+* ``route_miss_share`` (a sparse model): the largest over steps and layers
+  of the share of tokens whose choices are not the reference's own top k
+  as a set: near ties that the program's rounding flips, which a sound
+  run keeps to a small share and a bias in choosing would not;
+* ``route_mismatch`` (a sparse model, from the program's run): the
+  recomputed layers whose choices differ from their forward's
+  (``harness.RouteCapture``).
 
 From the whole run: ``log_mismatch``, the logged rows that differ from the
 values the steps returned (or are missing or extra); ``ckpt_mismatch``, the
@@ -59,6 +71,10 @@ def numbers(prog: dict, ref: dict) -> dict:
     if ref["dropped"][0] is not None:
         out["drop_gap"] = max(abs(a - b) for a, b in zip(prog["dropped"],
                                                          ref["dropped"]))
+        out["route_gap"] = max(ref["route_gap"])
+        out["route_miss_share"] = max(ref["route_miss"])
+        if "route_mismatch" in prog:
+            out["route_mismatch"] = prog["route_mismatch"]
     return out
 
 

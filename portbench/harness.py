@@ -12,7 +12,9 @@ TrainState, an outer "epochs" loop and an inner "train" loop that calls the
 program's train step and ``flor.log``s the step's scalars. Set-up makes the
 weights from the seed, loads the program's CUDA kernels, opens the session
 and runs the first epoch: the mix's ``check_steps`` steps, from which the
-check takes its readings and which the reference follows. The window is a
+check takes its readings and which the reference follows (in a model with
+routed experts, through the program's own choices: ``RouteCapture``,
+which only those steps run). The window is a
 closed loop of whole epochs (the next step starts when the last returns)
 until ``--seconds`` have passed; the rate is the tokens of every step in it
 over its whole length. ``--trace 1`` adds a span around each step (ended by
@@ -139,6 +141,53 @@ def warm_kernels(device):
     torch.cuda.synchronize(device)
 
 
+class RouteCapture:
+    """The choices of each MoE layer in each step of set-up's first epoch,
+    as the program's ``repro_torch.models.moe.route`` hands them to the
+    layer, which uses them. Within a step a layer, known by the router
+    weight it was called with, keeps its first call's choices: its forward.
+    A later call of that layer in the step is its recompute (remat), and
+    one whose choices differ from the forward's by a bit counts in
+    ``mismatch``, since the backward follows the recompute's. ``stop`` puts
+    the program's function back, so the window runs it untouched."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe.route
+        self.steps, self.mismatch = [], 0
+        self.wrapper = self._route
+        moe.route = self.wrapper
+
+    def _route(self, cfg, router_w, x_flat):
+        w, ids, aux = self.route(cfg, router_w, x_flat)
+        if self.steps:
+            layers = self.steps[-1]
+            key = (router_w.data_ptr(), tuple(router_w.shape))
+            if key not in layers:
+                layers[key] = ids.detach().clone()
+            elif not torch.equal(layers[key], ids):
+                self.mismatch += 1
+        return w, ids, aux
+
+    def step(self):
+        """The calls from here on are the next step's."""
+        self.steps.append({})
+
+    def stop(self):
+        if self.moe.route is self.wrapper:
+            self.moe.route = self.route
+
+    def routes(self, layers: int, tokens: int, k: int):
+        """Each step's choices [tokens, k], layer by layer in the order of
+        the forward; None unless every step called each of ``layers``
+        layers with that shape."""
+        out = [list(step.values()) for step in self.steps]
+        ok = out and all(len(r) == layers and all(
+            tuple(ids.shape) == (tokens, k) for ids in r) for r in out)
+        return out if ok else None
+
+
 def _leaf_norms(tree) -> dict:
     return {k: v for p, x in ref.leaves(tree)
             for k, v in ref.leaf_norms(p, x).items()}
@@ -227,6 +276,7 @@ def run_cell(bench_path: str, name: str, seed: int, seconds: float,
     tracer = Tracer(trace_on and on_card)
     base = tempfile.gettempdir()
     run_dir = tempfile.mkdtemp(prefix="portbench-", dir=base)
+    capture = RouteCapture() if m["E"] else None
     try:
         with flor.Session(run_dir, mode="record",
                           record=flor.RecordSpec(**mix["record"])) as sess:
@@ -244,6 +294,8 @@ def run_cell(bench_path: str, name: str, seed: int, seconds: float,
                     for _ in sess.loop("train", range(n)):
                         t0 = time.perf_counter()
                         batch = feed(step)
+                        if capture is not None and epoch == 0:
+                            capture.step()
                         t1 = time.perf_counter()
                         with tracer.span("portbench.step"):
                             ckpt.state, out = train_step(ckpt.state, batch)
@@ -273,6 +325,8 @@ def run_cell(bench_path: str, name: str, seed: int, seconds: float,
                     _sync(dev)
                     now = time.perf_counter()
                     if epoch == 0:
+                        if capture is not None:
+                            capture.stop()
                         setup_s = now - t_start
                         marks.append(("first epoch", now))
                         first_window_step = step
@@ -300,6 +354,8 @@ def run_cell(bench_path: str, name: str, seed: int, seconds: float,
             store_root, final, last_epoch=epoch,
             bounds=mix["record"].get("ckpt_error_bounds"))
     finally:
+        if capture is not None:
+            capture.stop()
         shutil.rmtree(run_dir, ignore_errors=True)
     del train_step, final
     gc.collect()
@@ -336,12 +392,22 @@ def run_cell(bench_path: str, name: str, seed: int, seconds: float,
         "change": _floats(readings["change"]),
         "dropped": [v.get("moe_dropped") for v in values[:warm]],
     }
+    # a sparse model's reference follows the program's own choices
+    routes = None
+    if capture is not None:
+        routes = capture.routes(m["L"], B * S, m["k"])
+        prog["route_mismatch"] = capture.mismatch
+        if routes is None:
+            log(f"no choices to follow: {[len(r) for r in capture.steps]} "
+                f"layers a step captured, of {m['L']}")
     t_ref = time.perf_counter()
-    refr = reference_readings(conf, mix, seed, dev, "float32")
+    refr = reference_readings(conf, mix, seed, dev, "float32", routes=routes)
     t_ref = time.perf_counter() - t_ref
     numbers = check.numbers(prog, refr)
+    if capture is not None and routes is None:
+        numbers["route_gap"] = numbers["route_miss_share"] = None
     if diag is not None:
-        diag.update(prog=prog, ref=refr)
+        diag.update(prog=prog, ref=refr, routes=routes)
     for key, gaps in check.leaf_gaps(prog, refr).items():
         worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:3]
         log(f"{key} gaps, worst leaves: "
@@ -425,11 +491,15 @@ def _device_info(dev) -> dict:
     return info
 
 
-def reference_readings(conf, mix, seed, dev, precision, tokens_fn=None):
+def reference_readings(conf, mix, seed, dev, precision, tokens_fn=None,
+                       routes=None):
     """The reference's readings over the mix's first ``check_steps`` steps
     from the seed's weights and ids: losses, the first step's clipped gradient
-    norm of each leaf, each leaf's change over the steps, the MoE drops.
-    ``tokens_fn(step)`` may replace the ids (a fault: half a batch)."""
+    norm of each leaf, each leaf's change over the steps, the MoE drops, and
+    of a sparse model each step's route gap and route miss share and each
+    layer's own ranking of the experts. ``routes[s][i]``, where given, are
+    the choices that layer ``i`` follows in step ``s``; ``tokens_fn(step)``
+    may replace the ids (a fault: half a batch)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     feed = Feed(mix, ref.dims(conf)["V"], seed, dev)
@@ -437,13 +507,18 @@ def reference_readings(conf, mix, seed, dev, precision, tokens_fn=None):
     state = {"params": params, "mu": zeros_like_params(params),
              "nu": zeros_like_params(params)}
     del params
-    losses, drops, grad = [], [], None
+    losses, drops, gaps, misses, ranks, grad = [], [], [], [], [], None
     for s in range(mix["check_steps"]):
         toks = tokens_fn(s) if tokens_fn else feed(s)["tokens"]
-        loss, met, gnorms = ref.train_step(conf, state, s, toks, precision)
+        loss, met, gnorms = ref.train_step(
+            conf, state, s, toks, precision,
+            routes=None if routes is None else routes[s])
         losses.append(float(loss))
-        drops.append(float(met["moe_dropped"]) if "moe_dropped" in met
-                     else None)
+        sparse = "moe_dropped" in met
+        drops.append(float(met["moe_dropped"]) if sparse else None)
+        gaps.append(float(met["route_gap"]) if sparse else None)
+        misses.append(float(met["route_miss"]) if sparse else None)
+        ranks.append(met.get("ranks"))
         grad = grad or gnorms
     change = _floats(_change_norms(conf, state["params"], seed, dev))
     del state
@@ -451,7 +526,8 @@ def reference_readings(conf, mix, seed, dev, precision, tokens_fn=None):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"loss": losses, "grad": grad, "change": change,
-            "dropped": drops}
+            "dropped": drops, "route_gap": gaps, "route_miss": misses,
+            "ranks": ranks}
 
 
 def forbidden_modules() -> list[str]:

@@ -8,7 +8,10 @@ What it computes, from a configuration file's published keys alone:
 * Mixtral's sparse block: a softmax router, the top-k experts renormalised,
   each expert's capacity max(ceil(k * T / E * capacity_factor), 4) with the
   choices kept in (token, rank) order and the rest dropped, the Switch
-  load-balance loss E * sum_e f_e * P_e on each token's first choice;
+  load-balance loss E * sum_e f_e * P_e on each token's first choice. Given
+  the choices of each layer (``routes``), the block follows them in place
+  of its own top-k, its gates, drops and router loss taken from them, and
+  reads how far they fall short of its own (``moe``'s route gap);
 * the next-token cross-entropy over the padded vocabulary (padded entries
   masked), plus the router loss times its coefficient;
 * AdamW (b1 0.9, b2 0.95, eps 1e-8, decay 0.1 on leaves of two or more
@@ -115,8 +118,14 @@ def leaves(tree, prefix=""):
 
 def leaf_norms(path: str, x) -> dict:
     """{name: norm tensor} of one leaf; a stacked leaf ("layers/...") by
-    layer, "<path>/<i>", as each layer's weight is a tensor of its own in the
-    published model."""
+    layer, "<path>/<i>", and an expert stack by layer and expert,
+    "<path>/<i>/<e>", as each layer's and each expert's weight is a tensor
+    of its own in the published model."""
+    if path.startswith("layers/moe/experts/"):
+        n = torch.linalg.vector_norm(x.reshape(x.shape[0], x.shape[1], -1),
+                                     dim=2)
+        return {f"{path}/{i}/{e}": v for i, row in enumerate(n)
+                for e, v in enumerate(row)}
     if path.startswith("layers/"):
         n = torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1)
         return {f"{path}/{i}": v for i, v in enumerate(n)}
@@ -187,15 +196,28 @@ def attention(m, x, wq, wk, wv, wo, cos, sin, precision, q_block):
     return mm("bsnh,nhd->bsd", o, wo, precision)
 
 
-def moe(m, x, router, wi, wg, wo, precision):
+def moe(m, x, router, wi, wg, wo, precision, ids=None):
     """Mixtral's sparse block over x [T, d]: (y, router loss, dropped
-    share of the choices)."""
+    share of the choices, its own ranking of the experts [T, E], route
+    gap, route miss share). Its choices are ``ids`` [T, k] where given,
+    else its own top k; the route gap is the largest over tokens of its own
+    top k's probability less that of the choices followed: 0 when they are
+    its own as a set, the gap between two ranks where one was swapped; the
+    route miss share is the share of tokens whose choices are not its own
+    top k as a set."""
     T = x.shape[0]
     E, k = m["E"], m["k"]
     probs = torch.softmax(mm("td,de->te", x, router, precision), dim=-1)
-    # the k largest, ties to the lower expert id
-    ids = torch.sort(probs.detach(), dim=-1, descending=True,
-                     stable=True).indices[:, :k]
+    # the largest first, ties to the lower expert id
+    rank = torch.sort(probs.detach(), dim=-1, descending=True,
+                      stable=True).indices
+    ids = rank[:, :k] if ids is None else ids.to(x.device, torch.long)
+    p = probs.detach()
+    # each sum over the values sorted, so that one set gives one sum
+    gap = (p.gather(-1, rank[:, :k]).sort(-1).values.sum(-1)
+           - p.gather(-1, ids).sort(-1).values.sum(-1)).max()
+    miss = (rank[:, :k].sort(-1).values != ids.sort(-1).values).any(-1) \
+        .float().mean()
     top = probs.gather(-1, ids)
     wts = (top / top.sum(-1, keepdim=True)).reshape(-1)
     first = F.one_hot(ids[:, 0], E).float().mean(0)
@@ -214,10 +236,14 @@ def moe(m, x, router, wi, wg, wo, precision):
         g = mm("td,df->tf", xe, wg[e], precision)
         ye = mm("tf,fd->td", F.silu(g) * h, wo[e], precision)
         y = y.index_add(0, tok, ye * wts[kept][:, None])
-    return y, aux, torch.tensor(dropped / (T * k), device=x.device)
+    return (y, aux, torch.tensor(dropped / (T * k), device=x.device), rank,
+            gap, miss)
 
 
-def _layer(m, precision, q_block, x, cos, sin, *w):
+def _layer(m, precision, q_block, ids, x, cos, sin, *w):
+    """One block: (x, router loss, dropped share), and for a sparse block
+    its ranking, route gap and route miss share (``moe``), following
+    ``ids`` where given."""
     ln1, ln2, wq, wk, wv, wo = w[:6]
     x = x + attention(m, rms_norm(x, ln1, m["eps"]), wq, wk, wv, wo,
                       cos, sin, precision, q_block)
@@ -225,9 +251,9 @@ def _layer(m, precision, q_block, x, cos, sin, *w):
     if m["E"]:
         router, ei, eg, eo = w[6:]
         B, S, d = h.shape
-        y, aux, drop = moe(m, h.reshape(B * S, d), router, ei, eg, eo,
-                           precision)
-        return x + y.reshape(B, S, d), aux, drop
+        y, aux, drop, *route = moe(m, h.reshape(B * S, d), router, ei, eg,
+                                   eo, precision, ids)
+        return (x + y.reshape(B, S, d), aux, drop, *route)
     wi, wg, wo2 = w[6:]
     g = mm("bsd,df->bsf", h, wg, precision)
     u = mm("bsd,df->bsf", h, wi, precision)
@@ -262,20 +288,27 @@ def _ce_block(m, precision, h, table, y, tied):
 
 
 def loss_fn(conf, params, tokens, precision="float32", q_block=1024,
-            loss_block=1024):
-    """(loss, {"ce", "moe_aux", "moe_dropped"}) of one batch [B, S]."""
+            loss_block=1024, routes=None):
+    """(loss, {"ce", "moe_aux", "moe_dropped", "ranks", "route_gap",
+    "route_miss"}) of one batch [B, S]; a sparse model's layer ``i``
+    follows the choices ``routes[i]`` [B * S, k] where given (``moe``)."""
     m = dims(conf)
     tokens = tokens.long()
     B, S = tokens.shape
     x = F.embedding(tokens, params["embed"]["table"])
     cos, sin = rope_tables(S, m["hd"], m["theta"], x.device)
-    auxs, drops = [], []
+    auxs, drops, ranks, gaps, misses = [], [], [], [], []
     for i in range(m["L"]):
-        x, aux, drop = checkpoint(
-            _layer, m, precision, q_block, x, cos, sin,
+        x, aux, drop, *route = checkpoint(
+            _layer, m, precision, q_block,
+            None if routes is None else routes[i], x, cos, sin,
             *_layer_weights(m, params, i), use_reentrant=False)
         auxs.append(aux)
         drops.append(drop.detach())
+        if route:
+            ranks.append(route[0])
+            gaps.append(route[1])
+            misses.append(route[2])
     h = rms_norm(x, params["ln_f"], m["eps"])[:, :-1]
     y = tokens[:, 1:]
     table = params["embed"]["table"] if m["tied"] \
@@ -293,6 +326,9 @@ def loss_fn(conf, params, tokens, precision="float32", q_block=1024,
         loss = loss + m["aux_coef"] * aux
         metrics["moe_aux"] = aux.detach()
         metrics["moe_dropped"] = torch.stack(drops).mean()
+        metrics["ranks"] = ranks
+        metrics["route_gap"] = torch.stack(gaps).max()
+        metrics["route_miss"] = torch.stack(misses).max()
     return loss, metrics
 
 
@@ -307,14 +343,16 @@ def learning_rate(step: int) -> float:
                       * (1 + math.cos(math.pi * prog)))
 
 
-def train_step(conf, state, step: int, tokens, precision="float32"):
+def train_step(conf, state, step: int, tokens, precision="float32",
+               routes=None):
     """One step at 0-based ``step`` on ``state`` = {"params", "mu", "nu"}
-    (nested dicts, updated in place). Returns (loss, metrics, {leaf: the
-    clipped gradient's norm}), the leaves as ``leaf_norms`` names them."""
+    (nested dicts, updated in place), following the MoE choices ``routes``
+    where given (``loss_fn``). Returns (loss, metrics, {leaf: the clipped
+    gradient's norm}), the leaves as ``leaf_norms`` names them."""
     named = leaves(state["params"])
     ws = [p.detach().requires_grad_(True) for _, p in named]
     tree = _unflatten(state["params"], dict(zip([n for n, _ in named], ws)))
-    loss, metrics = loss_fn(conf, tree, tokens, precision)
+    loss, metrics = loss_fn(conf, tree, tokens, precision, routes=routes)
     grads = list(torch.autograd.grad(loss, ws))
     del tree, ws
     with torch.no_grad():

@@ -3,7 +3,9 @@
 For each cell, at its own size and with one seed: the program's run is
 correct under the cell's limits (``check.judge`` against the float32
 reference), and the control, the reference computed in float8 in the
-program's place, is not. Skips without a card; ``PYTHONPATH=src python -m
+program's place, is not. In a sparse model the control chooses its own
+experts and the float32 reference follows those choices, as it follows
+the program's in a run. Skips without a card; ``PYTHONPATH=src python -m
 pytest -m cuda portbench/tests`` runs it there."""
 import json
 import os
@@ -11,7 +13,7 @@ import os
 import pytest
 import torch
 
-from portbench import check, harness
+from portbench import calibrate, check, harness
 from portbench.tests.smoke import ROOT
 
 BENCH = os.path.join(ROOT, "BENCHMARK.json")
@@ -37,10 +39,13 @@ def test_control_fails_where_the_program_passes(card, name):
     r = harness.run_cell(BENCH, name, SEED, 0.0, False, str(card), 0.0,
                          log=lambda s: None)
     assert r["correct"], r["checks"]
-    base = harness.reference_readings(c.conf, c.mix, SEED, card, "float32")
-    ctrl = check.numbers(harness.reference_readings(
-        c.conf, c.mix, SEED, card, "float8"), base)
-    # the control in the program's place, its logs and checkpoints sound
-    verdict = check.judge(dict(ctrl, log_mismatch=0, ckpt_mismatch=0),
-                          c.limits)
+    ctrl = harness.reference_readings(c.conf, c.mix, SEED, card, "float8")
+    routes = calibrate.own_routes(ctrl, c.dims["k"]) if c.dims["k"] \
+        else None
+    base = harness.reference_readings(c.conf, c.mix, SEED, card, "float32",
+                                      routes=routes)
+    # the control in the program's place, its logs, checkpoints and
+    # recomputed choices sound
+    verdict = check.judge(dict(check.numbers(ctrl, base), log_mismatch=0,
+                               ckpt_mismatch=0, route_mismatch=0), c.limits)
     assert not verdict["correct"], verdict["checks"]
