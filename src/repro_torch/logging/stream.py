@@ -10,10 +10,12 @@ synchronously on the training thread. This module is the fix:
   :class:`~repro_torch.checkpoint.async_writer.AsyncStage`; the stage thread does
   the device->host copy, JSON serialization, large-value spill, and the
   crash-safe segment write (``repro_torch.logging.segment``). Tensors are
-  mutable, so they are SNAPSHOTTED at capture with a device-side clone
-  (asynchronous on the card — the step path never blocks on ``.item()`` or
-  a device->host copy; the stage pays the copy later); host numpy arrays
-  are snapshotted with a memcpy; plain Python values are
+  mutable, so they are SNAPSHOTTED at capture: a CUDA tensor by an
+  asynchronous copy into pinned host memory, queued in the stream's order,
+  and an event the stage waits on (the step path never blocks on
+  ``.item()`` or a device->host copy, and neither does the stage hold up
+  the step path's launches: see :class:`_HostCopy`); a host tensor by a
+  clone; host numpy arrays with a memcpy; plain Python values are
   lowered with :func:`~repro_torch.logging.jsonable.jsonable` inline (cheap, and
   it freezes mutable lists/dicts at log time, keeping async output
   bit-identical to sync).
@@ -140,6 +142,8 @@ class FingerprintLog:
         """Background stage: device->host + serialize + spill + segment
         write for one enqueued row."""
         epoch, seq, key, value = item
+        if isinstance(value, _HostCopy):
+            value = value.wait()       # the card's time, not the log's
         t0 = time.perf_counter()
         line, nbytes = self._serialize(epoch, seq, key, value)
         self._sink.append(line, seq)
@@ -231,15 +235,44 @@ def _widen_bf16(host: np.ndarray, dtype: str) -> np.ndarray:
     return host
 
 
+class _HostCopy:
+    """A CUDA tensor's value on its way to the host: an asynchronous copy
+    into pinned memory, queued on the tensor's current stream (a snapshot,
+    as a clone on the card is), and an event recorded after it.
+
+    The stage thread waits on the event alone. When it copied the value to
+    the host itself, with a blocking copy into pageable memory, the copy
+    queued behind every launch made since the capture, and on an H100 the
+    step path's CUDA calls were seen to wait as long as it did (~160 ms, a
+    whole step of one Mixtral-8x7B layer): the card ran dry at every step
+    boundary, for longer in a process whose host ran slower."""
+
+    __slots__ = ("host", "done")
+
+    def __init__(self, t: torch.Tensor):
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.host.copy_(t.detach(), non_blocking=True)
+        # a blocking-sync event: the stage sleeps while it waits, leaving
+        # the host's cores to the thread that launches the steps
+        self.done = torch.cuda.Event(blocking=True)
+        self.done.record(torch.cuda.current_stream(t.device))
+
+    def wait(self) -> torch.Tensor:
+        self.done.synchronize()
+        return self.host
+
+
 def _capture(value, key):
     """Make a value safe to serialize LATER, as cheaply as possible on the
-    step path. Tensors are mutable: snapshot them with a clone on their own
-    device (an asynchronous copy on the card, no host sync) and let the
-    stage pay the transfer. Host numpy arrays: snapshot bytes (memcpy —
-    still far cheaper than tolist+json). Everything else is lowered inline;
-    mutable containers are deep-copied so a later mutation by the training
-    loop cannot reach back into the queue."""
+    step path. Tensors are mutable: a CUDA tensor starts its copy to the
+    host now, asynchronously (:class:`_HostCopy`), and a host tensor is
+    cloned. Host numpy arrays: snapshot bytes (memcpy — still far cheaper
+    than tolist+json). Everything else is lowered inline; mutable
+    containers are deep-copied so a later mutation by the training loop
+    cannot reach back into the queue."""
     if isinstance(value, torch.Tensor):
+        if value.is_cuda:
+            return _HostCopy(value)
         return value.detach().clone()
     if isinstance(value, np.ndarray):
         return value.copy()              # 0-d arrays are mutable too

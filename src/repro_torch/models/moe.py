@@ -14,9 +14,18 @@ sort, as the reference's ``argsort``; each token is repeated ``top_k``
 times by a reshape, so its gradient is a sum over ``k``; each [E, C] slot
 gathers the one choice that fills it; each choice gathers its own slot's
 output back; and a token's ``k`` outputs are summed in a fixed order.
-Every row that a gather reads is read by at most one destination, except
-a zero pad row that stands for empty slots and dropped choices, whose
-gradient is discarded. No scatter-add, hence no atomics on the card.
+Empty slots and dropped choices read a zero pad row. Apart from that row
+the two gathers are inverse permutations of each other, so the backward
+of each is a gather through the other's index (``_PadGather``): a row
+that nothing read gets a zero gradient by reading the incoming
+gradient's pad row, and nothing is summed into the pad row, so a step's
+work does not depend on how many slots are empty or choices dropped. No
+scatter-add, hence no atomics on the card.
+
+Under a profiler the layer's stages open spans inside the model's
+``repro_torch.ffn``: ``repro_torch.moe.route``, ``.dispatch`` (sort,
+counts, slot map, gather), ``.experts`` and ``.combine`` (gather, gate
+weights, sum over ``k``).
 
 Under a mesh with a "model" axis ``moe_apply`` runs the reference's
 expert-parallel branch (its ``shard_map``) on local shards: tokens sharded
@@ -43,6 +52,7 @@ from repro_torch.parallel import collectives as col
 from repro_torch.parallel.sharding import (current_mesh, mesh_axis_sizes,
                                            physical_spec, relayout,
                                            spec_axes)
+from repro_torch.utils.timing import span
 
 
 def moe_spec(cfg):
@@ -108,6 +118,27 @@ def _expert_ffn(cfg, pe, buf):
     return torch.bmm(h, pe["wo"].to(buf.dtype))
 
 
+class _PadGather(torch.autograd.Function):
+    """``cat([x, zeros(1, d)])[idx]``: the rows of ``x`` [R, d] at ``idx``
+    [M], where the index R reads a zero row. ``inv`` [R] is the inverse
+    map: ``idx[inv[r]] == r`` for every row r that some index reads, and
+    ``inv[r] == M`` for a row that none reads. The backward is then the
+    same gather of the incoming gradient through ``inv``, each row read
+    once: the bits of the indexing backward's sum into a zero buffer (but
+    the sign of a zero), without its serial sum of every pad index into
+    one discarded row."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv):
+        ctx.save_for_backward(inv)
+        return torch.cat([x, x.new_zeros(1, x.shape[1])])[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        return torch.cat([g, g.new_zeros(1, g.shape[1])])[inv], None, None
+
+
 def capacity(cfg, tokens: int) -> int:
     mo = cfg.moe
     return max(int(np.ceil(mo.top_k * tokens / mo.num_experts
@@ -125,47 +156,52 @@ def moe_local(cfg, p, x_flat, cap: int, e_offset: int = 0,
     k = mo.top_k
     El = mo.num_experts if e_local is None else e_local
     n = T * k
-    w, ids, aux = route(cfg, p["router"], x_flat)
+    with span("repro_torch.moe.route"):
+        w, ids, aux = route(cfg, p["router"], x_flat)
     dev = x_flat.device
 
-    # choice i is token i // k's; choices routed elsewhere sort last under
-    # the sentinel El (the reference's sort key)
-    local = ids.reshape(-1) - e_offset
-    mine = (local >= 0) & (local < El)
-    key = torch.where(mine, local, El)
-    order = torch.sort(key, stable=True).indices     # sorted place -> choice
-    place = torch.empty_like(order).scatter_(
-        0, order, torch.arange(n, device=dev))     # choice -> sorted place
-    # choices per expert, counted into a fixed [El + 1] buffer (bincount's
-    # length depends on the ids' values, which a fake-tensor trace cannot
-    # know); integer adds, so the same counts in any order
-    counts = torch.zeros(El + 1, dtype=torch.int64, device=dev).index_add_(
-        0, key, torch.ones_like(key))
-    start = torch.cumsum(counts, 0) - counts   # an expert's first place
-    pos = place - start[key]                   # a choice's slot in its expert
-    keep = mine & (pos < cap)
-    dropped = (mine & ~keep).sum().float() / mine.sum().clamp_min(1)
+    with span("repro_torch.moe.dispatch"):
+        # choice i is token i // k's; choices routed elsewhere sort last
+        # under the sentinel El (the reference's sort key)
+        local = ids.reshape(-1) - e_offset
+        mine = (local >= 0) & (local < El)
+        key = torch.where(mine, local, El)
+        order = torch.sort(key, stable=True).indices  # sorted place -> choice
+        place = torch.empty_like(order).scatter_(
+            0, order, torch.arange(n, device=dev))  # choice -> sorted place
+        # choices per expert, counted into a fixed [El + 1] buffer
+        # (bincount's length depends on the ids' values, which a fake-tensor
+        # trace cannot know); integer adds, so the same counts in any order
+        counts = torch.zeros(El + 1, dtype=torch.int64,
+                             device=dev).index_add_(0, key,
+                                                    torch.ones_like(key))
+        start = torch.cumsum(counts, 0) - counts  # an expert's first place
+        pos = place - start[key]          # a choice's slot in its expert
+        keep = mine & (pos < cap)
+        dropped = (mine & ~keep).sum().float() / mine.sum().clamp_min(1)
 
-    # slot (e, c) holds the choice at sorted place start[e] + c while c is
-    # below the expert's kept count; other slots read the zero pad row n
-    c = torch.arange(cap, device=dev)
-    filled = c[None, :] < torch.clamp(counts[:El], max=cap)[:, None]
-    src = order[torch.clamp(start[:El, None] + c[None, :], max=n - 1)]
-    src = torch.where(filled, src, n)
-    x_rep = x_flat[:, None, :].expand(T, k, d).reshape(n, d)
-    x_pad = torch.cat([x_rep, x_rep.new_zeros(1, d)])
-    buf = x_pad[src.reshape(-1)].reshape(El, cap, d)
+        # slot (e, c) holds the choice at sorted place start[e] + c while c
+        # is below the expert's kept count; other slots read the pad row n.
+        # A kept choice i sits in slot[i], so src[slot[i]] == i: each index
+        # undoes the other
+        c = torch.arange(cap, device=dev)
+        filled = c[None, :] < torch.clamp(counts[:El], max=cap)[:, None]
+        src = order[torch.clamp(start[:El, None] + c[None, :], max=n - 1)]
+        src = torch.where(filled, src, n).reshape(-1)
+        slot = torch.where(keep, key * cap + pos, El * cap)
+        x_rep = x_flat[:, None, :].expand(T, k, d).reshape(n, d)
+        buf = _PadGather.apply(x_rep, src, slot).reshape(El, cap, d)
 
-    out_buf = _expert_ffn(cfg, p["experts"], buf)
+    with span("repro_torch.moe.experts"):
+        out_buf = _expert_ffn(cfg, p["experts"], buf)
 
-    slot = torch.where(keep, key * cap + pos, El * cap)
-    out_pad = torch.cat([out_buf.reshape(El * cap, d),
-                         out_buf.new_zeros(1, d)])
-    contrib = (out_pad[slot] * w.reshape(-1).to(out_pad.dtype)[:, None]) \
-        .reshape(T, k, d)
-    out = contrib[:, 0]
-    for j in range(1, k):
-        out = out + contrib[:, j]
+    with span("repro_torch.moe.combine"):
+        got = _PadGather.apply(out_buf.reshape(El * cap, d), slot, src)
+        contrib = (got * w.reshape(-1).to(got.dtype)[:, None]) \
+            .reshape(T, k, d)
+        out = contrib[:, 0]
+        for j in range(1, k):
+            out = out + contrib[:, j]
     return out, aux, dropped
 
 

@@ -5,9 +5,10 @@ benchmark's reading of them (``portbench.spans``).
   a record ``Session`` run with it patched to raise.
 - A step's bits are the same with a profiler running and without.
 - Under a profiler each span opens as often a step as the model says:
-  ``repro_torch.attention`` and ``.ffn`` once a block in the forward and
-  once more in remat's recompute; the Flor spans once a ``flor.log`` and
-  twice a block occurrence.
+  ``repro_torch.attention`` and ``.ffn`` (in a MoE block, with
+  ``repro_torch.moe.*`` inside it) once a block in the forward and once
+  more in remat's recompute; the Flor spans once a ``flor.log`` and twice
+  a block occurrence.
 - ``portbench.spans.attribute`` on synthetic events: a launch on the
   span's own thread, one on autograd's thread linked by ``sequence_nr``,
   the attention chunks' recompute nested in the layer's, one on a thread
@@ -114,11 +115,14 @@ def test_span_counts_per_step(arch, remat):
     state, step, batch = _step(cfg)
     _, events = _profiled(lambda: step(state, batch))
     passes = 2 if remat else 1
+    # a MoE layer's stages open inside its ffn span
+    moe = ("route", "dispatch", "experts", "combine") if cfg.moe else ()
     assert _counts(events) == {
         "repro_torch.step.forward": 1, "repro_torch.step.backward": 1,
         "repro_torch.step.optimizer": 1, "repro_torch.head": 1,
         "repro_torch.attention": cfg.num_layers * passes,
-        "repro_torch.ffn": cfg.num_layers * passes}
+        "repro_torch.ffn": cfg.num_layers * passes,
+        **{"repro_torch.moe." + s: cfg.num_layers * passes for s in moe}}
 
 
 def test_flor_spans_in_record_session(tmp_path):

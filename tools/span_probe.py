@@ -10,8 +10,11 @@ traced run of a benchmark cell (``portbench.harness.run_cell``, ``--trace
 1``) whose profiled epoch is also read by ``portbench.spans.attribute``,
 and writes ``<out>/<cell>-<seed>.json`` (``--out``, by default
 ``build/spans``): the result line, the
-attribution, each layer's milliseconds a step (``spans.layer_ms``) and the
-count of each span; ``--dump`` adds every profiler event to
+attribution, each layer's milliseconds a step (``spans.layer_ms``), each
+span's own device milliseconds a step (``span_ms``: a MoE layer's
+``repro_torch.moe.route`` / ``.dispatch`` / ``.experts`` / ``.combine``
+beside what stays in ``repro_torch.ffn``) and the count of each span;
+``--dump`` adds every profiler event to
 ``<out>/<cell>-<seed>.events.json.gz`` for reading off the card. ``flor``
 times ``flor.log`` of a scalar on the card in a record ``Session``, in
 rounds of 50 calls with no profiler and 50 under one (the device idle
@@ -111,6 +114,8 @@ def cell(args):
               "profiled_steps": steps,
               "counts": span_counts(kept["events"]),
               "layer_ms": spans.layer_ms(got, steps),
+              "span_ms": {k: v["device_s"] * 1e3 / steps
+                          for k, v in sorted(by.items())},
               "busy_s": result["device"]["busy_s"], "attributed_s": sum(
                   v["device_s"] for k, v in by.items() if k != spans.NONE),
               "unattributed_s": by.get(spans.NONE, {}).get("device_s", 0.0),
@@ -118,8 +123,8 @@ def cell(args):
     write(args.out, f"{args.workload}-{args.seed}", report, kept["events"],
           args.dump)
     print(json.dumps({k: report[k] for k in (
-        "workload", "seed", "layer_ms", "busy_s", "attributed_s",
-        "unattributed_s")}))
+        "workload", "seed", "layer_ms", "span_ms", "busy_s",
+        "attributed_s", "unattributed_s")}))
     print(json.dumps(result))
 
 
