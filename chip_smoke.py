@@ -51,6 +51,14 @@ Run from a checkout on a machine with one NVIDIA H100. Phases:
      o and lse (one output ulp plus 2e-3 of the largest entry), two calls
      bit for bit, timed beside its bound, the plain version and SDPA's
      backward, with the forward's time when it writes lse;
+   - the train step's AdamW kernels (``adamw.cu``: sum of squares, finish,
+     update; no TPU kernel) over the whole leaf set of granite-3-2b and of
+     mixtral-8x7b as their benchmark cells build it (``ADAMW_CONFIGS``):
+     the norm within 1e-6 of a float64 sum and the same bits twice, the
+     clip scale ``clip_scale`` of it bit for bit, one update over every
+     leaf the plain per-leaf path's bits (``optimizer.plain_update``),
+     then each kernel timed beside its bound (32 bytes a parameter in all)
+     and the plain path on the same tensors;
 3. phase M, mixtral-8x7b at its published widths cut from 32 layers to 1
    (one whole period: every layer is SWA + MoE), one 8192-token sequence
    a step, random weights from the seed made on the card (1.72 B
@@ -384,7 +392,7 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_calls(torch, calls, reps: int = 5) -> dict:
+def time_calls(torch, calls, reps: int = 5, names=()) -> dict:
     """Times one pass of ``calls`` (one kernel or plain version per leaf):
 
     - ``ms``: the card's time, no host gaps: the durations of the device
@@ -395,7 +403,9 @@ def time_calls(torch, calls, reps: int = 5) -> dict:
     - ``pass_ms``: CUDA events around the pass as the host issues it, host
       dispatch included — what a checkpoint waits (median);
     - ``dispatch_us``: host time to issue one call (wrapper, allocation,
-      launch; median)."""
+      launch; median);
+    - ``ms_by``: for each of ``names``, ``ms`` of the device activities
+      whose name holds it, from the same profiler windows."""
     from torch.profiler import ProfilerActivity, profile
 
     for c in calls:
@@ -423,15 +433,19 @@ def time_calls(torch, calls, reps: int = 5) -> dict:
                 for c in calls:
                     c()
             torch.cuda.synchronize()
-        dev = [e.device_time for e in prof.events()
+        dev = [(e.name, e.device_time) for e in prof.events()
                if e.device_type.name == "CUDA"]
-        windows.append((len(dev), sum(dev)))
-    most = max(n for n, _ in windows)
-    dev_us = statistics.median(t for n, t in windows if n == most)
+        windows.append((len(dev), sum(t for _, t in dev),
+                        {k: sum(t for n, t in dev if k in n) for k in names}))
+    most = max(n for n, _, _ in windows)
+    kept = [w for w in windows if w[0] == most]
+    dev_us = statistics.median(t for _, t, _ in kept)
     if not (most > 0 and dev_us > 0):
         fail("torch.profiler recorded no device time for a timed pass")
     return {"ms": dev_us / reps / 1e3, "pass_ms": statistics.median(whole),
-            "dispatch_us": statistics.median(disp)}
+            "dispatch_us": statistics.median(disp),
+            "ms_by": {k: statistics.median(w[2][k] for w in kept) / reps
+                      / 1e3 for k in names}}
 
 
 def bound(hbm_bps, nbytes, ops_n, peak_ops=F32_OPS_PER_S):
@@ -696,6 +710,9 @@ def kernel_phase(torch, dev, hbm_bps, cfg):
     results.update(quantize_phase(torch, dev, gen, hbm_bps, state))
     results["flash_attention"] = flash_phase(torch, dev, gen, hbm_bps)
     results["flash_attention_bwd"] = flash_bwd_phase(torch, dev, gen, hbm_bps)
+    del state, moments, views, prevs
+    torch.cuda.empty_cache()
+    results.update(adamw_phase(torch, dev, hbm_bps))
     return results
 
 
@@ -1101,6 +1118,161 @@ def flash_bwd_phase(torch, dev, gen, hbm_bps) -> dict:
     say(f"kernel flash_attention_bwd: {len(rows)} cases within tolerance of "
         f"the plain version ({launches} launches)")
     return dict(main, launches=launches, cases=rows)
+
+
+# ------------------------------------------------------ AdamW kernels --
+# the train step's optimizer kernels over whole leaf sets: each benchmark
+# configuration's parameter tree (portbench/configs) as its cells build it,
+# f32 parameters and moments; the last (mixtral-8x7b: 1.72 B parameters,
+# 27.5 GB of state and gradients and 20.6 GB of new state) is the kernels
+# line's row
+ADAMW_CONFIGS = ("granite-3-2b", "mixtral-8x7b")
+# elements a slice in the plain path's bit check (its f32 temporaries stay
+# small beside one whole set of new state) and in the float64 norm
+ADAMW_SLICE = 1 << 26
+ADAMW_NORM_RTOL = 1e-6
+ADAMW_MAX_NORM = 1.0
+ADAMW_KERNELS = {"adamw_sumsq": "sq_kernel", "adamw_finish": "fin_kernel",
+                 "adamw_update": "upd_kernel"}
+
+
+def adamw_leaves(torch, dev, gen, name):
+    """(config, grads, params, mu, nu): benchmark configuration ``name``'s
+    parameter tree as lists of leaves on the card, from ``gen``: parameters
+    ~N(0, 1), gradients ~N(0, 1e-6), mu ~N(0, 1e-8), nu squares of such."""
+    from portbench import harness
+    from repro_torch.models.params import shape_tree
+    from repro_torch.models.transformer import lm_param_spec
+    from repro_torch.utils.pytree import tree_leaves
+
+    with open(os.path.join(ROOT, "portbench", "configs", name + ".json")) as f:
+        cfg = harness.port_config(json.load(f))
+    shapes = tree_leaves(shape_tree(lm_param_spec(cfg)),
+                         is_leaf=lambda x: isinstance(x, torch.Size))
+    pdt, mdt = getattr(torch, cfg.param_dtype), getattr(torch, cfg.moment_dtype)
+
+    def mk(k, dt):
+        return [(torch.randn(s, generator=gen, device=dev) * k).to(dt)
+                for s in shapes]
+    return (cfg, mk(1e-3, pdt), mk(1.0, pdt), mk(1e-4, mdt),
+            [x.square() for x in mk(1e-4, mdt)])
+
+
+def adamw_phase(torch, dev, hbm_bps) -> dict:
+    """The AdamW kernels (``kernels/adamw.py``) over each leaf set of
+    ``ADAMW_CONFIGS``, as the train step calls them: ``norm_and_scale``
+    (``adamw_sumsq``, ``adamw_finish``) then one ``update`` over every
+    leaf. The norm within ``ADAMW_NORM_RTOL`` of a float64 sum and the same
+    bits on a second call, the clip scale ``optimizer.clip_scale`` of it bit
+    for bit, p', m' and v' the bits of ``optimizer.plain_update`` on the
+    same leaves and scalars (compared slice by slice); then each kernel's
+    device time (profiler, by kernel name) beside its bound and the plain
+    path's on the same tensors: ``global_norm`` for the sum of squares,
+    the square root of the partials' sum and ``clip_scale`` for the
+    finish, ``plain_update`` for the update. Returns the three kernels'
+    entries for the kernels line (the last configuration's; the update's
+    holds each configuration's whole pass under ``leaf_sets``)."""
+    from repro_torch.kernels import adamw as K
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.schedule import warmup_cosine
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1
+    sched = warmup_cosine(3e-4, 100, 10000)
+    step = torch.tensor(5, dtype=torch.int32, device=dev)
+    sets, results = {}, {}
+    for name in ADAMW_CONFIGS:
+        cfg, g, p, m, v = adamw_leaves(torch, dev, gen, name)
+        mdt = getattr(torch, cfg.moment_dtype)
+        n = sum(x.numel() for x in p)
+        decay = [x.ndim >= 2 for x in p]
+        lr, c1, c2 = O.step_scalars(sched, step, b1, b2)
+        hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=wd, moment_dtype=mdt)
+        gn, scale = K.norm_and_scale(g, ADAMW_MAX_NORM)
+        gn2, scale2 = K.norm_and_scale(g, ADAMW_MAX_NORM)
+        want = math.sqrt(sum(float(x.double().square().sum()) for t in g
+                             for x in t.reshape(-1).split(ADAMW_SLICE)))
+        if not (bits_equal(torch, gn, gn2) and bits_equal(torch, scale,
+                                                          scale2)):
+            fail(f"adamw norm on {name}: two calls differ")
+        if abs(float(gn) / want - 1.0) > ADAMW_NORM_RTOL:
+            fail(f"adamw norm on {name}: {float(gn)!r} against the float64 "
+                 f"sum's {want!r}")
+        if not bits_equal(torch, scale, O.clip_scale(gn, ADAMW_MAX_NORM)):
+            fail(f"adamw clip scale on {name} is not clip_scale of its norm")
+        new = K.update(g, p, m, v, decay, scale, lr, c1, c2, **hyper)
+        differ = []
+        for i in range(len(p)):
+            cut = lambda t: t.reshape(-1).split(ADAMW_SLICE)  # noqa: E731
+            for j, parts in enumerate(zip(*(cut(t) for t in (
+                    g[i], p[i], m[i], v[i], new[0][i], new[1][i],
+                    new[2][i])))):
+                plain = O.plain_update(*([x] for x in parts[:4]), [decay[i]],
+                                       scale, lr, c1, c2, **hyper)
+                if not all(bits_equal(torch, a, b[0]) for a, b in
+                           zip(parts[4:], plain)):
+                    differ.append((i, j))
+        if differ:
+            fail(f"adamw update on {name}: {len(differ)} slices of "
+                 f"{ADAMW_SLICE} elements differ from the plain path's bits "
+                 f"(leaf, slice) {differ[:8]}")
+        del new
+        t_norm = time_calls(torch, [lambda: K.norm_and_scale(
+            g, ADAMW_MAX_NORM)], names=tuple(ADAMW_KERNELS.values()))
+        t_upd = time_calls(torch, [lambda: K.update(
+            g, p, m, v, decay, scale, lr, c1, c2, **hyper)])
+        partial = torch.rand(sum(-(-x.numel() // K.CHUNK) for x in g),
+                             dtype=torch.float64, device=dev,
+                             generator=gen)
+        plain = {
+            "adamw_sumsq": time_calls(torch, [lambda: O.global_norm(g)],
+                                      reps=3)["ms"],
+            "adamw_finish": time_calls(torch, [lambda: O.clip_scale(
+                torch.sqrt(partial.sum()), ADAMW_MAX_NORM)])["ms"],
+            "adamw_update": time_calls(torch, [lambda: O.plain_update(
+                g, p, m, v, decay, scale, lr, c1, c2, **hyper)],
+                reps=3)["ms"]}
+        # bytes: the sum of squares reads every gradient and writes the
+        # partials, the finish reads them, the update reads g, p, m, v and
+        # writes p', m', v'
+        pe, me = p[0].element_size(), m[0].element_size()
+        nbytes = {"adamw_sumsq": n * pe + 8 * partial.numel(),
+                  "adamw_finish": 8 * partial.numel(),
+                  "adamw_update": n * (3 * pe + 4 * me)}
+        ops_n = {"adamw_sumsq": 2 * n, "adamw_finish": partial.numel(),
+                 "adamw_update": 16 * n}
+        ms = {k: t_norm["ms_by"][ADAMW_KERNELS[k]] for k in
+              ("adamw_sumsq", "adamw_finish")} | {"adamw_update": t_upd["ms"]}
+        errs = {"adamw_sumsq": abs(float(gn) - want), "adamw_finish": 0.0,
+                "adamw_update": 0.0}
+        for k in ADAMW_KERNELS:
+            b, by = bound(hbm_bps, nbytes[k], ops_n[k])
+            t = t_upd if k == "adamw_update" else t_norm
+            results[k] = dict(max_abs_err=errs[k], ms=ms[k],
+                              pass_ms=t["pass_ms"],
+                              dispatch_us=t["dispatch_us"],
+                              plain_ms=plain[k], bound_ms=b, bound_by=by,
+                              library_ms=None)
+        whole = sum(ms.values())
+        whole_bound = sum(nbytes.values()) / hbm_bps * 1e3
+        sets[name] = dict(params=n, leaves=len(p), ms=whole,
+                          bound_ms=whole_bound,
+                          plain_ms=sum(plain.values()),
+                          share_of_bound=whole_bound / whole)
+        say(f"kernel adamw {name}: {n} {cfg.param_dtype} parameters, "
+            f"{cfg.moment_dtype} moments, {len(p)} leaves; norm "
+            f"{float(gn):.6f} (float64 {want:.6f}), same bits twice; update "
+            f"the plain path's bits on every leaf; sum of squares "
+            f"{ms['adamw_sumsq']:.4f} ms, finish {ms['adamw_finish']:.4f} "
+            f"ms, update {ms['adamw_update']:.4f} ms on the card: "
+            f"{whole:.4f} ms against the bound {whole_bound:.4f} ms "
+            f"({whole_bound / whole:.1%}); plain path "
+            f"{sum(plain.values()):.4f} ms (norm {plain['adamw_sumsq']:.4f}, "
+            f"update {plain['adamw_update']:.4f})")
+        del g, p, m, v, partial, gn, gn2, scale, scale2
+        torch.cuda.empty_cache()
+    results["adamw_update"]["leaf_sets"] = sets
+    return results
 
 
 # ---------------------------------------------------------- model check --
@@ -4181,6 +4353,11 @@ KERNELS = {
     "changed_mask": ("chunk_delta.cu", "chunk_delta.py:95", "ops"),
     # no TPU kernel: the reference's flash kernel has no VJP
     "flash_attention_bwd": ("flash_wgmma_bwd.cu", None, "train"),
+    # no TPU kernel: the reference's AdamW is XLA's fused elementwise ops;
+    # every train step runs the three (``train/optimizer.py``)
+    "adamw_sumsq": ("adamw.cu", None, "train"),
+    "adamw_finish": ("adamw.cu", None, "train"),
+    "adamw_update": ("adamw.cu", None, "train"),
 }
 
 
@@ -4202,7 +4379,7 @@ def kernels_line(results: dict, paths: dict) -> list:
                  "pass_ms": r["pass_ms"], "dispatch_us": r["dispatch_us"],
                  "path": path}
         for extra in ("cases", "routes", "small_call_ms", "launch_floor_ms",
-                      "mixtral_pass", "family_passes"):
+                      "mixtral_pass", "family_passes", "leaf_sets"):
             if extra in r:
                 entry[extra] = r[extra]
         line.append(entry)
@@ -4210,7 +4387,7 @@ def kernels_line(results: dict, paths: dict) -> list:
 
 
 # kernels of this slice's path: their ptxas -v report is printed after the build
-NEW_KERNELS = ("fa_bwd_",)
+NEW_KERNELS = tuple(ADAMW_KERNELS.values())
 
 
 def ptxas_report(build_log: dict, names) -> list:

@@ -10,7 +10,8 @@ process. A missing ``nvcc`` or a failed build raises: there is no fallback.
 
 Flags: ``-O3 -arch=sm_90a`` and no ``--use_fast_math`` — the quantize kernels
 need IEEE division and ``rintf`` to match the plain versions byte for byte,
-and flash attention ``expf``. No library beyond the CUDA runtime is linked:
+AdamW (``adamw.cu``) IEEE division and square root, and flash attention
+``expf``. No library beyond the CUDA runtime is linked:
 the tensor-core flash kernel (``flash_wgmma.cu``) finds
 ``cuTensorMapEncodeTiled`` in the already loaded ``libcuda.so.1`` with
 ``dlsym``; it and the backward (``flash_wgmma_bwd.cu``) share the header
@@ -32,7 +33,7 @@ BUILD_ROOT = os.path.join(REPO_ROOT, "build", "repro_torch_kernels")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("chunk_delta", "quantize", "flash_attention", "flash_wgmma",
-           "flash_wgmma_bwd")
+           "flash_wgmma_bwd", "adamw")
 HEADERS = ("flash_wgmma.cuh",)          # included by the sources above
 
 _P = ctypes.c_void_p
@@ -40,6 +41,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the extern "C" launchers; every launcher returns the
 # cudaError_t of its launch (0 = success)
 SIGNATURES = {
@@ -57,6 +59,10 @@ SIGNATURES = {
                     + [_F] + [_I] * 4 + [_P]},
     "flash_wgmma_bwd": {"fa_wgmma_bwd_launch": [_P] * 10 + [_LP] + [_I] * 6
                         + [_F, _I, _I, _P]},
+    "adamw": {"adamw_sumsq_launch": [_I, _LP, _LP, _IP, _P, _P],
+              "adamw_finish_launch": [_P, _L, _F, _P, _P, _P],
+              "adamw_update_launch": [_I, _I, _I, _LP, _LP, _IP] + [_P] * 4
+              + [_F] * 6 + [_P]},
 }
 
 _lock = threading.Lock()
@@ -67,7 +73,8 @@ build_log: dict[str, str] = {}       # ptxas resource report per source
 launches = dict.fromkeys(
     ("fingerprint", "fingerprint_changed", "changed_mask", "gather_quantize",
      "gather_quantize4", "quantize_rows", "dequantize_rows",
-     "flash_attention", "flash_attention_bwd"), 0)
+     "flash_attention", "flash_attention_bwd", "adamw_sumsq", "adamw_finish",
+     "adamw_update"), 0)
 _count_lock = threading.Lock()       # the checkpoint writer thread launches too
 
 

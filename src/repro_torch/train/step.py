@@ -1,4 +1,5 @@
-"""train_step factory: loss + ``torch.autograd.grad`` + clip + AdamW.
+"""train_step factory: loss + ``torch.autograd.grad`` + clip + AdamW (the
+clip folded into the update, ``train/optimizer.py``).
 
 The step is functional, as in the reference package: it returns a NEW
 TrainState and never writes the old one in place, so a checkpoint whose
@@ -29,9 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import build_model
-from repro_torch.train.optimizer import (AdamWState, adamw,
-                                         clip_by_global_norm, global_norm,
-                                         sharded_global_norm)
+from repro_torch.train.optimizer import (AdamWState, adamw, clip_scale,
+                                         norm_and_scale, sharded_global_norm)
 from repro_torch.train.schedule import warmup_cosine
 from repro_torch.train.state import TrainState
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
@@ -99,21 +99,18 @@ def build_train_step(cfg, *, device="cuda", mesh=None, peak_lr=3e-4,
         with span("repro_torch.step.forward"):
             loss, metrics = model.loss(tree_unflatten(treedef, leaves), batch)
         # a leaf the loss does not read (a zero-length layer stack, as in
-        # a MoE config cut to its leading dense layers) has a zero gradient;
-        # nothing else keeps the raw gradients, so clipping frees them
+        # a MoE config cut to its leading dense layers) has a zero gradient
         with span("repro_torch.step.backward"):
             grads = tree_unflatten(treedef, [
                 torch.zeros_like(p) if g is None else g for p, g in zip(
                     leaves, torch.autograd.grad(loss, leaves,
                                                 allow_unused=True))])
+        # the clip is the update's: it scales each gradient as it reads it
         with span("repro_torch.step.optimizer"):
-            if grad_clip:
-                grads, gnorm = clip_by_global_norm(grads, grad_clip)
-            else:
-                gnorm = global_norm(grads)
+            gnorm, scale = norm_and_scale(grads, grad_clip)
             new_params, opt = opt_update(grads,
                                          AdamWState(state.mu, state.nu),
-                                         state.params, state.step)
+                                         state.params, state.step, scale)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = gnorm
         metrics["lr"] = sched(state.step)
@@ -188,14 +185,10 @@ def _sharded_step(cfg, model, device, mesh, sched, opt_update, grad_clip):
             with span("repro_torch.step.optimizer"):
                 with torch.no_grad():
                     gnorm = sharded_global_norm(grads, spec_leaves)
-                grads = tree_unflatten(treedef, grads)
-                if grad_clip:
-                    grads, gnorm = clip_by_global_norm(grads, grad_clip,
-                                                       gnorm)
                 new_params, opt = opt_update(
-                    grads, AdamWState(mu, nu),
+                    tree_unflatten(treedef, grads), AdamWState(mu, nu),
                     tree_unflatten(treedef, [p.detach() for p in local]),
-                    step)
+                    step, clip_scale(gnorm, grad_clip) if grad_clip else None)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = gnorm
         metrics["lr"] = sched(step)

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.checkpoint.pipeline import PIPELINE_CHUNK_WORDS as CW
+from repro_torch.kernels import adamw as adamw_kernels
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.chunk_delta import changed_mask_cuda, fingerprint_cuda
@@ -677,13 +678,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     qkv = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_cuda(qkv, qkv, qkv)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adamw_kernels.norm_and_scale([x], 1.0)
+    s = torch.ones(())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adamw_kernels.update([x], [x], [x], [x], [False], s, s, s, s,
+                             b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
+                             moment_dtype=torch.float32)
     ops.reset_launch_counts()
     ops.fingerprint_leaf(x, 16)
     ops.changed_chunks(d, d)
     ops.dequantize_blocks(*ops.quantize_blocks(x), x.shape, x.dtype)
     ops.flash_attention(qkv, qkv, qkv)
     assert set(ops.launch_counts().values()) == {0}
-    assert len(ops.launch_counts()) == 9
+    assert len(ops.launch_counts()) == 12
 
 
 @pytest.mark.cuda

@@ -13,7 +13,10 @@ and writes ``<out>/<cell>-<seed>.json`` (``--out``, by default
 attribution, each layer's milliseconds a step (``spans.layer_ms``), each
 span's own device milliseconds a step (``span_ms``: a MoE layer's
 ``repro_torch.moe.route`` / ``.dispatch`` / ``.experts`` / ``.combine``
-beside what stays in ``repro_torch.ffn``) and the count of each span;
+beside what stays in ``repro_torch.ffn``), the count of each span, and the
+optimizer's elements by route over the run (``route_elems``, from
+``train/optimizer.py``) with the fused kernels' share of them
+(``fused_share``, printed after ``layer_ms``' ``optimizer_ms``);
 ``--dump`` adds every profiler event to
 ``<out>/<cell>-<seed>.events.json.gz`` for reading off the card. ``flor``
 times ``flor.log`` of a scalar on the card in a record ``Session``, in
@@ -89,6 +92,7 @@ def cell(args):
     import torch
 
     from portbench import harness, spans, trace
+    from repro_torch.train import optimizer
 
     kept = {}
 
@@ -116,6 +120,9 @@ def cell(args):
               "layer_ms": spans.layer_ms(got, steps),
               "span_ms": {k: v["device_s"] * 1e3 / steps
                           for k, v in sorted(by.items())},
+              "route_elems": dict(optimizer.route_elems),
+              "fused_share": optimizer.route_elems["fused"] / max(
+                  1, sum(optimizer.route_elems.values())),
               "busy_s": result["device"]["busy_s"], "attributed_s": sum(
                   v["device_s"] for k, v in by.items() if k != spans.NONE),
               "unattributed_s": by.get(spans.NONE, {}).get("device_s", 0.0),
@@ -123,7 +130,8 @@ def cell(args):
     write(args.out, f"{args.workload}-{args.seed}", report, kept["events"],
           args.dump)
     print(json.dumps({k: report[k] for k in (
-        "workload", "seed", "layer_ms", "span_ms", "busy_s",
+        "workload", "seed", "layer_ms", "route_elems", "fused_share",
+        "span_ms", "busy_s",
         "attributed_s", "unattributed_s")}))
     print(json.dumps(result))
 
